@@ -1,16 +1,18 @@
 """Device preprocessing: raw batches -> model inputs (counterpart of
-avid_cma_tpu/data/pipelines.py, the ``msc+color`` train path).
+avid_cma_tpu/data/pipelines.py): the ``msc+color`` train path and the
+eval paths of ``msc+color`` and ``crop+color``.
 
 uint8 frames (B, T, H, W, 3) and f32 waveforms (B, L) in; normalized
 clips (B, T, S, S, 3) and spectrograms (B, T', F, 1) out. Every random
-draw comes from one ``torch.Generator`` on the batch's device. The
-spectrogram goes through kernel K1 on the card.
+draw of the train path comes from one ``torch.Generator`` on the batch's
+device; the eval path draws nothing. The spectrogram goes through kernel
+K1 on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,10 +23,11 @@ from avid_cma_tpu_torch.ops.kernels.spectrogram import log_spectrogram_kernel
 
 @dataclasses.dataclass(frozen=True)
 class PreprocessConfig:
-    transform: str = "msc+color"  # the only front-end ported so far
+    transform: str = "msc+color"  # or "crop+color" (its eval path only)
     crop_size: int = 224
     min_area: float = 0.08
     color: Tuple[float, float, float, float] = (0.4, 0.4, 0.4, 0.2)
+    resize: Tuple[int, int] = (256, 256)  # crop+color's exact Resize target
     audio_fps: int = 24000
     n_fft: int = 512
     spectrogram_fps: float = 100.0
@@ -33,9 +36,10 @@ class PreprocessConfig:
     normalize_spectrogram: bool = True
 
     def __post_init__(self):
-        if self.transform != "msc+color":
+        if self.transform not in ("msc+color", "crop+color"):
             raise ValueError(
-                f"transform {self.transform!r} is not ported; only 'msc+color' is")
+                f"unknown transform {self.transform!r}: expected 'msc+color' or "
+                "'crop+color'")
 
     @property
     def hop_size(self) -> float:
@@ -61,21 +65,34 @@ def augment_clips_train(frames: torch.Tensor, u: torch.Tensor,
 
 
 def preprocess_batch(batch: Dict[str, torch.Tensor], cfg: PreprocessConfig,
-                     generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """Train path (the eval path is not ported yet):
-    {frames: uint8 (B,T,H,W,3), audio: f32 (B,L), index} ->
-    {frames: (B,T,S,S,3), audio: f32 (B,T',F,1), index}."""
+                     generator: Optional[torch.Generator] = None,
+                     train: bool = True) -> Dict[str, torch.Tensor]:
+    """{frames: uint8 (B,T,H,W,3), audio: f32 (B,L), index} ->
+    {frames: (B,T,S,S,3), audio: f32 (B,T',F,1), index}. The train path
+    draws from ``generator``; the eval path (``train=False``) has no
+    randomness and no volume jitter. Not ported yet: the crop+color train
+    path and the random jitter order."""
+    if train and cfg.transform != "msc+color":
+        raise NotImplementedError(
+            f"the {cfg.transform!r} train path is not ported yet; only its eval "
+            "path (train=False) is")
     out = dict(batch)
     if "frames" in batch:
         frames = batch["frames"]
-        bsz = frames.shape[0]
-        u = torch.rand((bsz, 2 * video_aug.CROP_ATTEMPTS + 7),
-                       generator=generator, device=frames.device)
         # bf16 on the card: its 8-bit mantissa matches the 8-bit source frames
-        out["frames"] = augment_clips_train(frames, u, cfg, compute_dtype(frames.device))
+        dtype = compute_dtype(frames.device)
+        if train:
+            u = torch.rand((frames.shape[0], 2 * video_aug.CROP_ATTEMPTS + 7),
+                           generator=generator, device=frames.device)
+            out["frames"] = augment_clips_train(frames, u, cfg, dtype)
+        elif cfg.transform == "crop+color":
+            out["frames"] = video_aug.crop_augment_clips_eval(
+                frames, cfg.crop_size, cfg.resize, dtype)
+        else:
+            out["frames"] = video_aug.augment_clips_eval(frames, cfg.crop_size, dtype=dtype)
     if "audio" in batch:
         wav = batch["audio"]
-        if cfg.volume_jitter > 0:
+        if train and cfg.volume_jitter > 0:
             u = torch.rand((wav.shape[0], 1), generator=generator, device=wav.device)
             wav = wav * video_aug.uniform(u, 1.0 - cfg.volume_jitter, 1.0 + cfg.volume_jitter)
         out["audio"] = log_spectrogram_kernel(

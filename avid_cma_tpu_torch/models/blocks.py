@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from avid_cma_tpu_torch.ops.conv3d import Conv1x1x1, Conv3D
+from avid_cma_tpu_torch.ops.kernels.r2p1d_pair import r2p1d_pair
 from avid_cma_tpu_torch.ops.kernels.stem_pool import scale_relu_pool
 
 BN_MOMENTUM = 0.9  # retain rate: new = 0.9 * old + 0.1 * batch
@@ -55,6 +56,13 @@ class BatchNorm(nn.Module):
                 self.momentum * self.running_var + (1 - self.momentum) * var)
         return mean, var
 
+    def fold(self, mean: torch.Tensor, var: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(a, b), f32 (C,), with normalize(x) = x*a + b per channel:
+        a = weight*rsqrt(var + eps), b = bias - mean*a."""
+        a = self.weight * torch.rsqrt(var + self.eps)
+        return a, self.bias - mean * a
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, var = self.batch_stats(x)
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -70,9 +78,7 @@ class StemBNReLUPool(BatchNorm):
     the stem conv wrote channels-last memory."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean, var = self.batch_stats(x)
-        a = self.weight * torch.rsqrt(var + self.eps)
-        b = self.bias - mean * a
+        a, b = self.fold(*self.batch_stats(x))
         y = x.permute(0, 2, 3, 4, 1).contiguous()
         return scale_relu_pool(y, a, b).permute(0, 4, 1, 2, 3)
 
@@ -113,7 +119,13 @@ class Basic2DBlock(nn.Module):
 
 class BasicR2P1DBlock(nn.Module):
     """R(2+1)D residual block: (1,3,3) spatial then (3,1,1) temporal conv,
-    twice, with a 1x1x1 projection residual when the shape changes."""
+    twice, with a 1x1x1 projection residual when the shape changes.
+
+    In eval mode each pair whose strides are all 1 (spatial conv -> BN ->
+    ReLU -> temporal conv, with the BN folded from its running stats) is
+    one ``r2p1d_pair`` (kernel K5 on the card), fed the NTHWC view of the
+    channels-last activation; strided pairs, and every pair in training
+    mode, run the convolutions and the BatchNorm separately."""
 
     def __init__(self, in_planes: int, out_planes: int,
                  stride: Tuple[int, int, int] = (1, 1, 1), dtype=torch.float32):
@@ -132,10 +144,19 @@ class BasicR2P1DBlock(nn.Module):
             self.res_conv = None
         self.out_bn = BatchNorm(out_planes, dtype)
 
+    def _pair(self, x: torch.Tensor, spt: Conv3D, bn: BatchNorm,
+              tmp: Conv3D) -> torch.Tensor:
+        if self.training or spt.stride != (1, 1, 1) or tmp.stride != (1, 1, 1):
+            return tmp(torch.relu(bn(spt(x))))
+        a, b = bn.fold(bn.running_mean, bn.running_var)
+        ws, wt = (c.weight.to(c.dtype).permute(2, 3, 4, 1, 0).contiguous()
+                  for c in (spt, tmp))
+        y = r2p1d_pair(x.to(spt.dtype).permute(0, 2, 3, 4, 1), ws, wt, a, b)
+        return y.permute(0, 4, 1, 2, 3)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(self.spt_bn1(self.spt_conv1(x)))
-        h = torch.relu(self.tmp_bn1(self.tmp_conv1(h)))
-        h = torch.relu(self.spt_bn2(self.spt_conv2(h)))
-        h = self.tmp_conv2(h)
+        h = self._pair(x, self.spt_conv1, self.spt_bn1, self.tmp_conv1)
+        h = torch.relu(self.tmp_bn1(h))
+        h = self._pair(h, self.spt_conv2, self.spt_bn2, self.tmp_conv2)
         res = x if self.res_conv is None else self.res_conv(x)
         return torch.relu(self.out_bn(h + res))

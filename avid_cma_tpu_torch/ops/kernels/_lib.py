@@ -30,7 +30,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("spectrogram.cu", "stem_pool.cu", "nce_gather.cu")
+SOURCES = ("spectrogram.cu", "stem_pool.cu", "nce_gather.cu", "r2p1d_pair.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -39,6 +39,7 @@ LAUNCHES: Dict[str, int] = {
     "stem_pool_fwd": 0,
     "stem_pool_bwd": 0,
     "nce_gather": 0,
+    "r2p1d_pair": 0,
 }
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -53,6 +54,8 @@ _SIGNATURES = {
     "avid_stem_pool_bwd": [_VP] * 7 + [_I] * 5 + [_VP],
     # bank, idx, q, out, B, K, N, D, temperature, stream
     "avid_nce_scores": [_VP] * 4 + [_I] * 4 + [_F, _VP],
+    # x, w_spatial, w_temporal, scale, bias, out, B, T, H, W, C, is_bf16, stream
+    "avid_r2p1d_pair": [_VP] * 6 + [_I] * 6 + [_VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

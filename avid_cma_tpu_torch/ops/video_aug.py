@@ -1,11 +1,12 @@
-"""Video augmentation on device, the ``msc+color`` train path
-(counterpart of avid_cma_tpu/ops/video_aug.py).
+"""Video augmentation on device: the ``msc+color`` train path and both
+eval paths (counterpart of avid_cma_tpu/ops/video_aug.py).
 
 Random-resized crop with one box per clip on the integer grid, bilinear
 resize equal to ``jax.image.scale_and_translate(method="bilinear")``
 (which antialiases when it downscales), horizontal flip, colour jitter in
 the canonical brightness -> contrast -> saturation -> hue order, ImageNet
-normalization. Every op takes its random draws as arguments; the caller
+normalization; for eval, the same resize over the whole frame, then a
+centre crop. Every op takes its random draws as arguments; the caller
 draws them (``data/pipelines.py``), so tests can hand the JAX ops and
 these the same numbers.
 """
@@ -213,3 +214,42 @@ def jitter_factors(u: torch.Tensor, strengths: Tuple[float, ...]):
     hue = strengths[3]
     out.append(uniform(u[:, 3], -hue, hue) if hue > 0 else None)
     return tuple(out)
+
+
+def _resize_center_crop(frames: torch.Tensor, size: Tuple[int, int], crop_size: int,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """``jax.image.resize(method="bilinear")`` of uint8 (B, T, H, W, C) to
+    ``size`` (the whole frame as the crop box of ``crop_resize``), then a
+    centre crop and ImageNet normalization."""
+    b, _, h, w, _ = frames.shape
+    rh, rw = size
+    zero = torch.zeros(b, device=frames.device)
+    out = crop_resize(frames, zero, zero, torch.full_like(zero, float(h)),
+                      torch.full_like(zero, float(w)), size, dtype)
+    top = (rh - crop_size) // 2
+    left = (rw - crop_size) // 2
+    out = out[:, :, top:top + crop_size, left:left + crop_size, :]
+    return normalize_clip(out / 255.0)
+
+
+def crop_augment_clips_eval(frames: torch.Tensor, crop_size: int = 224,
+                            resize: Tuple[int, int] = (256, 256),
+                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Eval path of ``crop+color``: an exact (aspect-distorting)
+    Resize(resize), then a centre crop and normalize."""
+    return _resize_center_crop(frames, tuple(resize), crop_size, dtype)
+
+
+def augment_clips_eval(frames: torch.Tensor, crop_size: int = 224,
+                       resize: int | None = None,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Eval path of ``msc+color``: short-side Resize(int(crop/0.875)) with
+    the reference's truncation of the long side, int(size * long / short),
+    then a centre crop and normalize."""
+    _, _, h, w, _ = frames.shape
+    resize = resize if resize is not None else int(crop_size / 0.875)
+    if w < h:
+        size = (int(resize * h / w), resize)
+    else:
+        size = (resize, int(resize * w / h))
+    return _resize_center_crop(frames, size, crop_size, dtype)

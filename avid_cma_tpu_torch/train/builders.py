@@ -4,7 +4,8 @@
 recipe ``configs/main/avid/kinetics/Cross-N1024.yaml`` that this slice
 uses, as a frozen dataclass (the card host has no ``yaml``; a CPU test
 holds the two together). ``build_pretrain`` wires model, optimizer,
-banks and the fused step on a device.
+banks and the fused step on a device; ``build_eval`` the same state with
+the fused eval-loss step and the embed fn.
 """
 
 from __future__ import annotations
@@ -20,7 +21,12 @@ from avid_cma_tpu_torch.device import resolve_device, set_full_f32_precision
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
-from avid_cma_tpu_torch.train.step import init_train_state, make_fused_train_step
+from avid_cma_tpu_torch.train.step import (
+    init_train_state,
+    make_embed_fn,
+    make_fused_eval_step,
+    make_fused_train_step,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,12 +105,8 @@ def kinetics_cross_n1024() -> PretrainConfig:
     )
 
 
-def build_pretrain(cfg: PretrainConfig, device: str | torch.device = "cuda"
-                   ) -> Tuple[TrainState, Callable]:
-    """(state, fused_step) for AVID pretraining on ``device``; call
-    ``fused_step(state, raw_batch, step_i)`` with raw batches
-    {frames: uint8 (B,T,H,W,3), audio: f32 (B,L), index: (B,)} on the
-    device. Raises when ``device`` is CUDA and no card is present."""
+def _build_state(cfg: PretrainConfig, device: str | torch.device
+                 ) -> Tuple[TrainState, AVIDConfig]:
     dev = resolve_device(device)
     set_full_f32_precision()
     if dev.type == "cuda":
@@ -118,5 +120,28 @@ def build_pretrain(cfg: PretrainConfig, device: str | torch.device = "cuda"
                                 weight_decay=cfg.weight_decay)
     scheduler = multistep_scheduler(optimizer, cfg.milestones, cfg.gamma)
     criterion = cfg.criterion(model.out_dim)
-    state = init_train_state(model, optimizer, scheduler, criterion, cfg.seed)
+    return init_train_state(model, optimizer, scheduler, criterion, cfg.seed), criterion
+
+
+def build_pretrain(cfg: PretrainConfig, device: str | torch.device = "cuda"
+                   ) -> Tuple[TrainState, Callable]:
+    """(state, fused_step) for AVID pretraining on ``device``; call
+    ``fused_step(state, raw_batch, step_i)`` with raw batches
+    {frames: uint8 (B,T,H,W,3), audio: f32 (B,L), index: (B,)} on the
+    device. Raises when ``device`` is CUDA and no card is present."""
+    state, criterion = _build_state(cfg, device)
     return state, make_fused_train_step(criterion, cfg.preprocess(), cfg.seed)
+
+
+def build_eval(cfg: PretrainConfig, device: str | torch.device = "cuda"
+               ) -> Tuple[TrainState, Callable, Callable]:
+    """(state, fused_eval_step, embed) for held-out evaluation of the AVID
+    model on ``device``, the state built as ``build_pretrain``'s. Call
+    ``fused_eval_step(state, raw_batch, batch_idx)`` with raw batches as
+    for the train step (the eval preprocessing: resize and centre crop,
+    no volume jitter), and ``embed(video, audio)`` with preprocessed
+    inputs. Neither changes the state. Raises when ``device`` is CUDA and
+    no card is present."""
+    state, criterion = _build_state(cfg, device)
+    return (state, make_fused_eval_step(criterion, cfg.preprocess(), cfg.seed),
+            make_embed_fn(state.model))

@@ -4,13 +4,16 @@
 forward in train mode (BN running stats update), the AVID criterion,
 backward, optimizer step, and the new banks. ``make_fused_train_step``
 puts the device preprocessing in front: ``fused(state, raw_batch, step_i)``.
-PyTorch runs eagerly, so there is no program to compile; the step is the
-same sequence of launches every call.
+``make_eval_loss_step`` / ``make_fused_eval_step`` give the held-out
+criterion loss without changing the state, and ``make_embed_fn`` the
+eval-mode embeddings. PyTorch runs eagerly, so there is no program to
+compile; the step is the same sequence of launches every call.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import contextlib
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -70,3 +73,70 @@ def make_fused_train_step(criterion_cfg: AVIDConfig, pp_cfg: PreprocessConfig,
         return inner(state, batch)
 
     return fused
+
+
+@contextlib.contextmanager
+def _evaluating(model: torch.nn.Module) -> Iterator[None]:
+    """Eval mode under ``torch.inference_mode``; the model's train/eval
+    mode is restored on exit."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            yield
+    finally:
+        model.train(was_training)
+
+
+def make_eval_loss_step(criterion_cfg: AVIDConfig, seed: int
+                        ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """step(state, batch, batch_idx=0, neg_idx=None) -> metrics: the
+    criterion loss of a held-out batch with the model in eval mode, under
+    ``torch.inference_mode``. The state is left exactly as it was (params,
+    BN running stats, banks, Z, ``step``, ``generator``, train/eval mode):
+    the criterion's new banks are dropped (PARITY.md divergence #2: the
+    reference's test phase would corrupt the train banks). Negatives come
+    from ``neg_idx`` when given, else from a generator of the step's own,
+    seeded from (seed, batch_idx), so successive held-out batches draw
+    different negatives."""
+
+    def step(state: TrainState, batch: Batch, batch_idx: int = 0,
+             neg_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        with _evaluating(state.model):
+            y = batch["index"].long()
+            v_emb, a_emb = state.model(batch["frames"], batch["audio"])
+            gen = None
+            if neg_idx is None:
+                gen = torch.Generator(device=y.device).manual_seed(
+                    (seed + 3) * 1_000_003 + int(batch_idx))
+            loss, logs, _ = avid_forward(state.bank, v_emb, a_emb, y, criterion_cfg,
+                                         neg_idx=neg_idx, generator=gen)
+        return {**logs, "loss": loss}
+
+    return step
+
+
+def make_fused_eval_step(criterion_cfg: AVIDConfig, pp_cfg: PreprocessConfig,
+                         seed: int) -> Callable[[TrainState, Batch, int], Dict[str, torch.Tensor]]:
+    """fused(state, raw_batch, batch_idx): the eval preprocessing
+    (``preprocess_batch(train=False)``), then the eval-loss step."""
+    inner = make_eval_loss_step(criterion_cfg, seed)
+
+    def fused(state: TrainState, raw_batch: Batch, batch_idx: int = 0) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            batch = preprocess_batch(raw_batch, pp_cfg, train=False)
+        return inner(state, batch, batch_idx)
+
+    return fused
+
+
+def make_embed_fn(model: torch.nn.Module
+                  ) -> Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+    """embed(video, audio) -> (video_emb, audio_emb) from the eval-mode
+    forward under ``torch.inference_mode``; the model's mode is restored."""
+
+    def embed(video: torch.Tensor, audio: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        with _evaluating(model):
+            return model(video, audio)
+
+    return embed

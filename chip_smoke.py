@@ -5,17 +5,25 @@
 1. prints the card's name and power limit (nvidia-smi), builds the CUDA
    kernels from avid_cma_tpu_torch/csrc/ and prints the build time;
 2. holds each kernel (K1 spectrogram, K2/K3 stem pool fwd/bwd, K4 NCE
-   gather) against its plain PyTorch version on the card at the shapes of
-   the Kinetics slice, and times kernel and plain version with CUDA events;
-3. runs one train step at a small size on the card and on the CPU from the
-   same weights and inputs and compares loss, Z and bank rows;
+   gather, K5 fused (2+1)D conv pair) against its plain PyTorch version on
+   the card at the shapes of the Kinetics slices (K5 at the four R2Plus1D-18
+   stage shapes), and times kernel and plain version with CUDA events;
+3. runs one train step, and one eval-mode forward, at a small size on the
+   card and on the CPU from the same weights and inputs and compares loss,
+   Z and bank rows, and the embeddings;
 4. runs the Kinetics Cross-N1024 AVID pretraining slice at full width
    (R2Plus1D-18 + Conv2D-10, 32 clips of 8 x 224^2, 2 s audio, N = 232,067
    bank rows, 1024 negatives) through ``build_pretrain`` and the fused
    step: one warm-up step, then 5 timed steps with the launch counters
    reset just before them; checks finite losses, a frozen Z > 0, unit-norm
    touched bank rows, and that each kernel ran on that path;
-5. prints one JSON line per check, a summary line, the
+5. runs the forward-only slice of the same model through ``build_eval``:
+   raw 240 x 320 frames through the eval preprocessing, one warm-up eval
+   step, 5 timed ones with the counters reset just before them, then one
+   embed call; checks finite losses, a state left bit for bit as it was,
+   reproducible losses per batch index, and the launches of each kernel
+   (K5 on the 13 stride-1 pairs of every forward);
+6. prints one JSON line per check, a summary line per slice, the
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 
 Every phase raises on failure; nothing is caught. Without a CUDA card the
@@ -33,19 +41,33 @@ import numpy as np
 import torch
 
 from avid_cma_tpu_torch.criterions.avid import AVIDConfig, BankState
+from avid_cma_tpu_torch.data.pipelines import preprocess_batch
 from avid_cma_tpu_torch.device import set_full_f32_precision
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
+from avid_cma_tpu_torch.models.blocks import BatchNorm
 from avid_cma_tpu_torch.ops import stft
-from avid_cma_tpu_torch.ops.kernels import _lib, nce_gather, spectrogram, stem_pool
-from avid_cma_tpu_torch.train.builders import build_pretrain, kinetics_cross_n1024
+from avid_cma_tpu_torch.ops.kernels import (
+    _lib,
+    nce_gather,
+    r2p1d_pair,
+    spectrogram,
+    stem_pool,
+)
+from avid_cma_tpu_torch.train.builders import (
+    build_eval,
+    build_pretrain,
+    kinetics_cross_n1024,
+)
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
-from avid_cma_tpu_torch.train.step import make_train_step
+from avid_cma_tpu_torch.train.step import make_embed_fn, make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FLOP/s off the
-# tensor cores
+# tensor cores, dense bf16 FLOP/s on the tensor cores (K5's bound in bf16:
+# the least time the card could take for bf16 products)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 WARMUP_STEPS, TIMED_STEPS = 1, 5
 # the slice's shapes at the kernels: waveforms (B, L); the stem activation
@@ -55,6 +77,12 @@ AUDIO_SHAPE = (32, 48000)
 STEM_SHAPE = (256, 112, 112, 64)
 BANK_ROWS = 232067
 RAW_HW = (256, 320)
+# the eval slice's raw frames: a common Kinetics source size, so the eval
+# short-side resize (240 -> 256) really resizes
+EVAL_RAW_HW = (240, 320)
+# the stride-1 (2+1)D pairs of R2Plus1D-18 at 8 x 224^2, 32 clips: (B, T, H, W, C)
+PAIR_SHAPES = {"conv2x": (32, 8, 56, 56, 64), "conv3x": (32, 4, 28, 28, 128),
+               "conv4x": (32, 2, 14, 14, 256), "conv5x": (32, 1, 7, 7, 512)}
 
 KERNELS = {
     "spectrogram": dict(
@@ -69,9 +97,18 @@ KERNELS = {
     "nce_gather": dict(
         name="K4 nce_gather", source="avid_cma_tpu_torch/csrc/nce_gather.cu",
         replaces="avid_cma_tpu/ops/pallas/nce_gather.py:113"),
+    "r2p1d_pair": dict(
+        name="K5 r2p1d_pair", source="avid_cma_tpu_torch/csrc/r2p1d_pair.cu",
+        replaces="avid_cma_tpu/ops/pallas/r2p1d_block.py:84"),
 }
 EXPECTED_LAUNCHES = {"spectrogram": 5, "stem_pool_fwd": 5, "stem_pool_bwd": 5,
-                     "nce_gather": 20}
+                     "nce_gather": 20, "r2p1d_pair": 0}
+# 5 eval steps: one spectrogram, one stem pool and 4 score launches each,
+# and K5 on the 13 stride-1 pairs of each forward; one embed call
+EXPECTED_EVAL_LAUNCHES = {"spectrogram": 5, "stem_pool_fwd": 5, "stem_pool_bwd": 0,
+                          "nce_gather": 20, "r2p1d_pair": 65}
+EXPECTED_EMBED_LAUNCHES = {"spectrogram": 0, "stem_pool_fwd": 1, "stem_pool_bwd": 0,
+                           "nce_gather": 0, "r2p1d_pair": 13}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -94,20 +131,21 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def report(results: dict, key: str, case: str, abs_err: float, err: float, tol: float,
-           kernel_fn, plain_fn, nbytes: float, flops: float, iters: int = 20) -> None:
+           kernel_fn, plain_fn, nbytes: float, flops: float, iters: int = 20,
+           peak_flops: float = F32_FLOPS) -> None:
     """Time kernel and plain version, print the check's JSON line, raise if
     ``err`` exceeds ``tol``; keep the first case's times and the largest
     absolute error over the cases for the kernels line."""
     ms = time_ms(kernel_fn, iters)
     plain = time_ms(plain_fn, max(3, iters // 4))
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, peak_flops)
     name = KERNELS[key]["name"]
     print(json.dumps({"name": name, "case": case, "max_err": err, "tol": tol,
                       "max_abs_err": abs_err, "kernel_ms": ms, "plain_ms": plain,
@@ -214,6 +252,47 @@ def check_nce_gather(results: dict) -> None:
                nbytes, 2.0 * bsz * k * d)
 
 
+def _taps(n: int) -> int:
+    """(position, tap) pairs of a 3-tap SAME conv over n positions that
+    touch real input: the taps on the zero padding are no work."""
+    return 3 * n - 2 if n > 1 else 1
+
+
+def check_r2p1d_pair(results: dict) -> None:
+    """K5 at the four stage shapes in bf16 and at conv2x's in f32.
+    Tolerance, max |kernel - plain| / max |plain|: 8e-3 in bf16, two ulps
+    at the output's scale (the kernel and cuDNN sum in other orders, and
+    the rounding of the bf16 intermediate can flip); 1e-5 in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cases = [(name, shape, torch.bfloat16) for name, shape in PAIR_SHAPES.items()]
+    cases.append(("conv2x f32", PAIR_SHAPES["conv2x"], torch.float32))
+    for case, shape, dtype in cases:
+        b, t, h, w, c = shape
+        x = randn(*shape).to(dtype)
+        ws = (randn(1, 3, 3, c, c) / (9 * c) ** 0.5).to(dtype)
+        wt = (randn(3, 1, 1, c, c) / (3 * c) ** 0.5).to(dtype)
+        scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+        bias = randn(c) * 0.1
+        got = r2p1d_pair.r2p1d_pair(x, ws, wt, scale, bias).float()
+        ref = r2p1d_pair.plain_pair(x, ws, wt, scale, bias).float()
+        abs_err = float((got - ref).abs().max())
+        rel = abs_err / float(ref.abs().max())
+        del got, ref
+        es = x.element_size()
+        flops = 2.0 * b * c * c * (t * _taps(h) * _taps(w) + h * w * _taps(t))
+        nbytes = 2 * x.numel() * es + 12 * c * c * es + 2 * c * 4
+        bf16 = dtype == torch.bfloat16
+        report(results, "r2p1d_pair", f"{case} {list(shape)}", abs_err, rel,
+               8e-3 if bf16 else 1e-5,
+               lambda: r2p1d_pair.r2p1d_pair(x, ws, wt, scale, bias),
+               lambda: r2p1d_pair.plain_pair(x, ws, wt, scale, bias),
+               nbytes, flops, iters=10, peak_flops=BF16_FLOPS if bf16 else F32_FLOPS)
+
+
 def check_small_step() -> None:
     """One train step at a small size on the card (bf16 convolutions, the
     kernels) and on the CPU (f32, the plain versions, which the CPU tests
@@ -252,6 +331,39 @@ def check_small_step() -> None:
                                                        "min_bank_row_cos": 0.99}}), flush=True)
     require(loss_rel <= 2e-2 and z_rel <= 2e-2 and cos >= 0.99,
             f"small step: card and CPU disagree (loss {loss_rel}, Z {z_rel}, cos {cos})")
+
+
+def check_small_eval() -> None:
+    """One eval-mode forward at a small size (depth 10, B=8, 8 x 64^2) on
+    the card (bf16 convolutions, K5 on the five stride-1 pairs) and on the
+    CPU (f32, the plain versions) from the same weights and BN running
+    stats (drawn from a seed, so the folded scale and bias are not
+    trivial); every embedding within cosine 0.99."""
+    rng = np.random.default_rng(5)
+    b = 8
+    video = rng.standard_normal((b, 8, 64, 64, 3), dtype=np.float32)
+    audio = rng.standard_normal((b, 40, 257, 1), dtype=np.float32)
+    embs = {}
+    for dev in ("cpu", "cuda"):
+        model = av_wrapper("R2Plus1D", {"depth": 10}, "Conv2D", {"depth": 10},
+                           proj_dim=[512, 512, 128], seed=0, device=dev)
+        stats = np.random.default_rng(6)
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                c = m.running_mean.numel()
+                m.running_mean.copy_(torch.from_numpy(stats.normal(0, 0.1, c).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(stats.uniform(0.5, 1.5, c).astype(np.float32)))
+        before = _lib.LAUNCHES["r2p1d_pair"]
+        v, a = make_embed_fn(model)(torch.from_numpy(video).to(dev),
+                                    torch.from_numpy(audio).to(dev))
+        embs[dev] = (v.float().cpu(), a.float().cpu())
+        launched = _lib.LAUNCHES["r2p1d_pair"] - before
+        require(launched == (5 if dev == "cuda" else 0), f"K5 launches on {dev}: {launched}")
+    cos = [float(torch.nn.functional.cosine_similarity(g, r, dim=1).min())
+           for g, r in zip(embs["cuda"], embs["cpu"])]
+    print(json.dumps({"name": "small eval forward, card vs CPU", "min_video_emb_cos": cos[0],
+                      "min_audio_emb_cos": cos[1], "tol": 0.99}), flush=True)
+    require(min(cos) >= 0.99, f"small eval forward: card and CPU disagree (cos {cos})")
 
 
 def run_slice() -> dict:
@@ -299,6 +411,69 @@ def run_slice() -> dict:
     }
 
 
+def _snapshot(state: TrainState) -> list:
+    return ([state.bank.view1_mem.clone(), state.bank.view2_mem.clone(), state.bank.z.clone()]
+            + [v.clone() for v in state.model.state_dict().values()])
+
+
+def run_eval_slice() -> dict:
+    cfg = kinetics_cross_n1024()
+    state, fused_eval, embed = build_eval(cfg, device="cuda")
+    rng = np.random.default_rng(1)
+    b, t = cfg.batch_size, cfg.num_frames
+    raw = {
+        "frames": torch.from_numpy(
+            rng.integers(0, 255, (b, t, *EVAL_RAW_HW, 3), dtype=np.uint8)).cuda(),
+        "audio": torch.from_numpy(
+            rng.standard_normal((b, int(cfg.audio_clip_duration * cfg.audio_fps)),
+                                dtype=np.float32)).cuda(),
+        "index": torch.from_numpy(rng.choice(cfg.num_data, b, replace=False)).cuda(),
+    }
+    before = _snapshot(state)
+    t0 = time.perf_counter()
+    for i in range(WARMUP_STEPS):
+        fused_eval(state, raw, i)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    _lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [fused_eval(state, raw, i)["loss"] for i in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    losses = torch.stack(losses).cpu()
+    require(bool(torch.isfinite(losses).all()), f"non-finite eval loss {losses.tolist()}")
+    again = float(fused_eval(state, raw, 0)["loss"])
+    require(again == float(losses[0]), f"batch 0 gave {again}, then {float(losses[0])}")
+    require(float(losses[0]) != float(losses[1]), "batches 0 and 1 drew the same negatives")
+    require(launches == EXPECTED_EVAL_LAUNCHES,
+            f"kernel launches on the eval path {launches}, expected {EXPECTED_EVAL_LAUNCHES}")
+
+    with torch.inference_mode():
+        batch = preprocess_batch(raw, cfg.preprocess(), train=False)
+    _lib.reset_launches()
+    v, a = embed(batch["frames"], batch["audio"])
+    torch.cuda.synchronize()
+    embed_launches = dict(_lib.LAUNCHES)
+    require(v.shape == a.shape == (b, 128), f"embedding shapes {v.shape}, {a.shape}")
+    require(bool(torch.isfinite(v).all() and torch.isfinite(a).all()), "non-finite embeddings")
+    require(embed_launches == EXPECTED_EMBED_LAUNCHES,
+            f"kernel launches of the embed call {embed_launches}, "
+            f"expected {EXPECTED_EMBED_LAUNCHES}")
+    after = _snapshot(state)
+    require(len(after) == len(before) and all(torch.equal(x, y) for x, y in zip(before, after)),
+            "the eval path changed banks, Z, params or BN stats")
+    return {
+        "losses": losses.tolist(), "warmup_s": warmup_s, "step_ms": dt / TIMED_STEPS * 1e3,
+        "clips_per_sec": b * TIMED_STEPS / dt, "peak_mem_gib": peak, "launches": launches,
+        "embed_launches": embed_launches, "state_unchanged": True,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -320,17 +495,26 @@ def main() -> None:
     check_spectrogram(results)
     check_stem_pool(results)
     check_nce_gather(results)
+    check_r2p1d_pair(results)
     check_small_step()
+    check_small_eval()
     torch.cuda.empty_cache()
 
     run = run_slice()
     print(json.dumps({"card": smi, "config": "Cross-N1024 R2Plus1D-18+Conv2D-10 b32 8x224^2",
                       **run}), flush=True)
+    torch.cuda.empty_cache()
+    ev = run_eval_slice()
+    print(json.dumps({"card": smi, "config": "Cross-N1024 eval (forward only) "
+                      "R2Plus1D-18+Conv2D-10 b32 8x224^2 from 240x320", **ev}), flush=True)
 
+    # each kernel's launches on its path: K1-K4 on the train step, K5 on the
+    # eval step (the train step runs no K5)
+    launches = {**run["launches"], "r2p1d_pair": ev["launches"]["r2p1d_pair"]}
     kernels = []
     for key, meta in KERNELS.items():
         r = results[key]
-        kernels.append({**meta, "route": "cuda", "launches": run["launches"][key],
+        kernels.append({**meta, "route": "cuda", "launches": launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at small and ragged shapes the chip check does not cover (partial
-tiles, narrow channels, D < 128, out-of-range indices), plus the
-wrappers' input checks and launch counters.
+tiles, narrow channels, D < 128, out-of-range indices, one or three
+frames, 7^2 and 9^2 planes), plus the wrappers' input checks, launch
+counters, and the channels-last layouts that reach K2 and K5 without a
+copy.
 
 Needs an NVIDIA card; skips without one. Imports no JAX, so it runs on a
 card host without it:
@@ -14,9 +16,17 @@ import pytest
 import torch
 
 from avid_cma_tpu_torch.device import set_full_f32_precision
+from avid_cma_tpu_torch.models import blocks
 from avid_cma_tpu_torch.models.video import R2Plus1D
 from avid_cma_tpu_torch.ops import stft
-from avid_cma_tpu_torch.ops.kernels import _lib, nce_gather, spectrogram, stem_pool
+from avid_cma_tpu_torch.ops.conv3d import Conv3D
+from avid_cma_tpu_torch.ops.kernels import (
+    _lib,
+    nce_gather,
+    r2p1d_pair,
+    spectrogram,
+    stem_pool,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -142,3 +152,104 @@ def test_stem_conv_output_feeds_k2_without_a_copy(dev):
     h = conv(x.permute(0, 4, 1, 2, 3))
     assert h.is_contiguous(memory_format=torch.channels_last_3d)
     assert h.permute(0, 2, 3, 4, 1).is_contiguous()
+
+
+def _pair_inputs(dev, shape, dtype, seed=5):
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(a.astype(np.float32)).to(dev).to(dt)
+
+    return (t(rng.standard_normal(shape)),
+            t(rng.standard_normal((1, 3, 3, c, c)) / np.sqrt(9 * c)),
+            t(rng.standard_normal((3, 1, 1, c, c)) / np.sqrt(3 * c)),
+            t(rng.uniform(0.5, 1.5, c), torch.float32),
+            t(rng.standard_normal(c) * 0.1, torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c", [64, 512])
+@pytest.mark.parametrize("hw", [7, 9])
+@pytest.mark.parametrize("t", [1, 3])
+def test_r2p1d_pair_kernel_matches_plain(dev, t, hw, c, dtype):
+    args = _pair_inputs(dev, (2, t, hw, hw, c), dtype)
+    before = _lib.LAUNCHES["r2p1d_pair"]
+    got = r2p1d_pair.r2p1d_pair(*args)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["r2p1d_pair"] == before + 1
+    ref = r2p1d_pair.plain_pair(*args)
+    assert got.shape == ref.shape and got.dtype == dtype
+    # bf16: two ulps at the output's scale (sum order and the rounding of
+    # the bf16 intermediate differ from cuDNN's); f32: sum order only
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    assert float((got.float() - ref.float()).abs().max() / ref.float().abs().max()) <= tol
+
+
+# shapes that take each tile shape of csrc/r2p1d_pair.cu: 64, 32, 16 pixels
+# by 64, 128, 256 channels, and the narrow 32-pixel tile by 64 channels that
+# only an intermediate too large for those gets (32 frames at C=64)
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 2, 20, 20, 64), torch.bfloat16),
+    ((2, 3, 9, 9, 128), torch.bfloat16),
+    ((2, 2, 9, 9, 256), torch.float32),
+    ((1, 32, 7, 7, 64), torch.bfloat16),
+], ids=["64px", "32px", "16px", "32-frames"])
+def test_r2p1d_pair_kernel_tile_shapes(dev, shape, dtype):
+    args = _pair_inputs(dev, shape, dtype)
+    got = r2p1d_pair.r2p1d_pair(*args).float()
+    ref = r2p1d_pair.plain_pair(*args).float()
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+
+
+def test_r2p1d_pair_kernel_temporal_edges(dev):
+    c = 64
+    x = torch.zeros((1, 3, 8, 8, c), device=dev)
+    x[0, 0] = 1.0
+    ws = torch.zeros((1, 3, 3, c, c), device=dev)
+    ws[0, 1, 1] = torch.eye(c)
+    wt = torch.stack([torch.eye(c) * k for k in (2.0, 3.0, 5.0)]).to(dev)[:, None, None]
+    out = r2p1d_pair.r2p1d_pair(x, ws, wt.contiguous(), torch.ones(c, device=dev),
+                                torch.zeros(c, device=dev))
+    assert bool((out[0, 0] == 3.0).all() and (out[0, 1] == 2.0).all())
+    assert bool((out[0, 2] == 0.0).all())
+
+
+def test_r2p1d_pair_rejects_bad_inputs(dev):
+    x, ws, wt, a, b = _pair_inputs(dev, (1, 2, 7, 7, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        r2p1d_pair.r2p1d_pair(x, ws.float(), wt, a, b)  # weights not in x.dtype
+    with pytest.raises(ValueError, match="shape"):
+        r2p1d_pair.r2p1d_pair(x, ws, wt[:2], a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        r2p1d_pair.r2p1d_pair(x.transpose(2, 3), ws, wt, a, b)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        r2p1d_pair.r2p1d_pair(*_pair_inputs(dev, (1, 2, 7, 7, 32), torch.bfloat16))
+    with pytest.raises(ValueError, match="float32"):
+        r2p1d_pair.r2p1d_pair(x, ws, wt, a.double(), b)
+
+
+def test_eval_block_activation_feeds_k5_without_a_copy(dev, monkeypatch):
+    """In eval mode both stride-1 pairs of a block take the NTHWC view of
+    the channels-last activation as it is: the first pair reads the
+    block's input memory itself, and each input is already contiguous."""
+    block = blocks.BasicR2P1DBlock(64, 64, dtype=torch.bfloat16).to(dev).eval()
+    for m in block.modules():
+        if isinstance(m, Conv3D):
+            torch.nn.init.normal_(m.weight, std=0.05)
+    seen = []
+
+    def spy(x, *rest):
+        seen.append((x.data_ptr(), x.is_contiguous()))
+        return real(x, *rest)
+
+    real = blocks.r2p1d_pair
+    monkeypatch.setattr(blocks, "r2p1d_pair", spy)
+    x = torch.randn((2, 4, 14, 14, 64), device=dev, dtype=torch.bfloat16)
+    before = _lib.LAUNCHES["r2p1d_pair"]
+    with torch.inference_mode():
+        out = block(x.permute(0, 4, 1, 2, 3))
+    assert _lib.LAUNCHES["r2p1d_pair"] == before + 2
+    assert seen[0] == (x.data_ptr(), True) and seen[1][1]
+    assert out.permute(0, 2, 3, 4, 1).is_contiguous()

@@ -4,7 +4,10 @@ uniform numbers JAX draws from its keys are recomputed here and handed to
 the port. Crop boxes exactly; crop-resize (a crop larger than the output
 and one smaller), flip, jitter with given factors, normalize, the whole
 msc+color train path, and the volume gain within 1e-4 (f32, values in
-[0, 1] or normalized)."""
+[0, 1] or normalized). Both eval paths (msc+color's short-side resize,
+crop+color's exact resize; each then a centre crop) on non-square raw
+frames, one case downscaling and one upscaling, and ``preprocess_batch``
+with ``train=False`` against the JAX one, within 1e-4."""
 
 import jax
 import jax.numpy as jnp
@@ -12,8 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from avid_cma_tpu.data import pipelines as jax_pipelines
 from avid_cma_tpu.ops import video_aug as jax_aug
-from avid_cma_tpu_torch.data.pipelines import PreprocessConfig, augment_clips_train
+from avid_cma_tpu_torch.data.pipelines import (
+    PreprocessConfig,
+    augment_clips_train,
+    preprocess_batch,
+)
 from avid_cma_tpu_torch.ops import video_aug as port_aug
 
 TOL = 1e-4
@@ -103,3 +111,45 @@ def test_volume_gain_matches():
     ref = jax.random.uniform(k_vol, (4, 1), minval=0.9, maxval=1.1)
     got = port_aug.uniform(torch.from_numpy(_u(k_vol, (4, 1)).copy()), 0.9, 1.1)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL)
+
+
+# (40, 30) -> 36 x 27: portrait, downscaled; (20, 26) -> 27 x 35: landscape,
+# upscaled (crop 24: short side int(24 / 0.875) = 27)
+@pytest.mark.parametrize("hw", [(40, 30), (20, 26)], ids=["down", "up"])
+@pytest.mark.parametrize("path", ["msc+color", "crop+color"])
+def test_eval_paths_match(path, hw):
+    rng = np.random.default_rng(4)
+    frames = rng.integers(0, 256, (2, 2, *hw, 3)).astype(np.uint8)
+    if path == "msc+color":
+        ref = jax_aug.augment_clips_eval(jnp.asarray(frames), crop_size=24)
+        got = port_aug.augment_clips_eval(torch.from_numpy(frames), crop_size=24)
+    else:
+        ref = jax_aug.crop_augment_clips_eval(jnp.asarray(frames), 24, (27, 32))
+        got = port_aug.crop_augment_clips_eval(torch.from_numpy(frames), 24, (27, 32))
+    assert got.shape == (2, 2, 24, 24, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL)
+
+
+@pytest.mark.parametrize("transform", ["msc+color", "crop+color"])
+def test_preprocess_batch_eval_matches(transform):
+    rng = np.random.default_rng(5)
+    batch = {"frames": rng.integers(0, 256, (2, 2, 30, 40, 3)).astype(np.uint8),
+             "audio": rng.standard_normal((2, 4800)).astype(np.float32),
+             "index": np.array([3, 1])}
+    kw = dict(transform=transform, crop_size=24, resize=(27, 32), audio_clip_duration=0.2)
+    ref = jax_pipelines.preprocess_batch(
+        jax.random.key(0), {k: jnp.asarray(v) for k, v in batch.items()},
+        jax_pipelines.PreprocessConfig(**kw), train=False)
+    got = preprocess_batch({k: torch.from_numpy(v) for k, v in batch.items()},
+                           PreprocessConfig(**kw), train=False)
+    for k in ("frames", "audio"):
+        assert got[k].shape == ref[k].shape
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=TOL, err_msg=k)
+
+
+def test_config_raises_only_for_what_is_not_ported():
+    PreprocessConfig(transform="crop+color")
+    with pytest.raises(ValueError, match="unknown transform"):
+        PreprocessConfig(transform="msc")
+    with pytest.raises(NotImplementedError, match="train path"):
+        preprocess_batch({}, PreprocessConfig(transform="crop+color"), train=True)

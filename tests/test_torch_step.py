@@ -16,8 +16,8 @@ differences between the two stacks grow with lr. Measured at this size:
 up to 1.1% apart by step 5 at lr 1e-4, within 0.2% at 2e-5.
 
 Also: the fused step (preprocessing + step) runs and is reproducible; the
-Cross-N1024 dataclass matches the YAML recipe; entry points raise without
-a card; and no module of the port, nor chip_smoke.py, imports JAX, flax,
+Cross-N1024 dataclass matches the YAML recipe; entry points and the
+measurement scripts raise without a card; and no module of the port, nor chip_smoke.py, imports JAX, flax,
 optax or the JAX package.
 """
 
@@ -43,7 +43,8 @@ from avid_cma_tpu.train.step import make_train_step as jax_make_train_step
 from avid_cma_tpu_torch.criterions.avid import AVIDConfig, BankState
 from avid_cma_tpu_torch.device import resolve_device
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
-from avid_cma_tpu_torch.train.builders import build_pretrain, kinetics_cross_n1024
+from avid_cma_tpu_torch.scripts import r2p1d_block_bench, train_clips
+from avid_cma_tpu_torch.train.builders import build_eval, build_pretrain, kinetics_cross_n1024
 from avid_cma_tpu_torch.train.checkpoint import flax_to_port_state
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
@@ -199,7 +200,7 @@ def test_kinetics_dataclass_matches_yaml():
         loss["wModal_coeff"])
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the CUDA entry points would run")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -208,6 +209,12 @@ def test_entry_points_raise_without_a_card():
         av_wrapper("R2Plus1D", {"depth": 10}, "Conv2D", {"depth": 10})
     with pytest.raises(RuntimeError, match="cuda"):
         build_pretrain(_small_cfg())
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_eval(_small_cfg())
+    monkeypatch.setattr("sys.argv", ["script"])
+    for script in (r2p1d_block_bench, train_clips):
+        with pytest.raises(RuntimeError, match="cuda"):
+            script.main()
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avid_cma_tpu")
