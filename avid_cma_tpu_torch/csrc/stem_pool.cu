@@ -10,18 +10,47 @@
 // affine in f32 and rounded once (padding excluded, as the -inf init of
 // the XLA composition). Backward: each window's gradient goes to its
 // FIRST row-major max (XLA select-and-scatter ties), then the ReLU mask,
-// then dy = d*a, and per-block partial sums da = sum d*y, db = sum d that
-// the caller sums.
-//
-// Bound on this card: bytes. Forward reads y (411 MB at the Kinetics
-// shape) and writes the pooled output (103 MB); backward reads y and g
-// and writes dy (925 MB). Design: one thread per element, channels
-// innermost so a warp reads contiguous channels; neighbour re-reads hit
-// L1/L2. The backward is the gather form: an input (h, w) lies in at most
-// 2x2 windows, and the thread recomputes each window's first argmax, so no
-// atomics are needed and the result is deterministic. The affine uses
+// then dy = d*a, da = sum d*y, db = sum d. The affine uses
 // __fmul_rn/__fadd_rn (no FMA contraction) so it rounds exactly like the
 // plain PyTorch version's separate multiply and add.
+//
+// Bound on this card: bytes. Forward reads y (411 MB at the Kinetics
+// shape (256, 112, 112, 64)) and writes the pooled output (103 MB);
+// backward reads y and g and writes dy (925 MB, 0.276 ms at 3.35 TB/s).
+//
+// Forward design (K2): one thread per output element, channels innermost
+// so a warp reads contiguous channels; neighbour re-reads hit L1/L2.
+//
+// Backward design (K3). The first form, one thread per input element and
+// channel with 2-byte loads, recomputed the first argmax of each of its up
+// to 2x2 windows (up to 36 re-reads and affines per element) behind 64-bit
+// index division: instruction- and latency-bound at 7.13 ms, 4% of the
+// bytes bound (H100 80GB HBM3, 700 W). Now a persistent block (two per SM)
+// walks tiles of TOH x TOW windows of one image across all C channels and
+// makes one pass over each in shared memory. Timed on the card, the pass
+// is bound by instruction issue, not by bytes, so the design spends as few
+// instructions per element as it can:
+//  1. the TMA stages the next tile while this one computes: one bulk copy
+//     per staged row (the tile's 2*TOH x 2*TOW elements and the rows and
+//     columns of the windows around them) and per row of the windows' g,
+//     each issued by a lane of warp 0, completing on an mbarrier;
+//  2. relu_affine runs once per staged element, in place, as bf16; staged
+//     elements in the padding are then set to 0, which never takes the max
+//     from an element that could take a gradient;
+//  3. one 4-bit code per window and channel holds its first row-major max,
+//     from one pass of bf16x2 compares; a window whose max is 0 gets 0xf
+//     (no position): its max sits on an element the ReLU mask zeroes, so
+//     the gather needs no mask;
+//  4. each input element gathers g from the at most 2x2 windows whose code
+//     points at it, last window first (the plain version's order, so the
+//     f32 sums agree bit for bit), and stores dy = d*a with a 16-byte
+//     streaming store; a thread keeps one column (warps share its parity,
+//     so their lanes visit as many windows), and reads y again from L2 for
+//     da with an evict-first load;
+//  5. da, db accumulate in registers over every tile the block walks; each
+//     block writes one partial row (grid: avid_stem_pool_bwd_parts) and a
+//     second launch sums the rows in a fixed order: no float atomics, the
+//     same bits on every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -30,8 +59,16 @@
 namespace {
 
 constexpr int FWD_THREADS = 256;
+
 constexpr int BWD_THREADS = 256;
-constexpr int BWD_ITERS = 64;  // elements per thread in the backward
+constexpr int TOH = 7;              // windows per tile, rows
+constexpr int TOW = 8;              // windows per tile, columns
+constexpr int WR = TOH + 1;         // window rows whose codes a tile needs
+constexpr int WC = TOW + 1;
+constexpr int SR = 2 * TOH + 3;     // input rows staged
+constexpr int SC = 2 * TOW + 3;
+constexpr int OWN = 4 * TOH * TOW;  // input elements a tile writes
+constexpr int SUM_THREADS = 256;
 
 __device__ __forceinline__ float relu_affine(__nv_bfloat16 y, float a, float b) {
   const float h = fmaxf(__fadd_rn(__fmul_rn(__bfloat162float(y), a), b), 0.f);
@@ -69,92 +106,437 @@ __global__ void __launch_bounds__(FWD_THREADS) stem_pool_fwd_kernel(
   out[i] = __float2bfloat16_rn(m);
 }
 
-// true when the first row-major max of window (oh, ow) sits at (h, w)
-__device__ __forceinline__ bool routes_to(const __nv_bfloat16* __restrict__ yn,
-                                          float ac, float bc, int H, int W,
-                                          int C, int c, int oh, int ow, int h,
-                                          int w) {
-  float best = -INFINITY;
-  int bh = -1;
-  int bw = -1;
-  for (int dh = -1; dh <= 1; ++dh) {
-    const int hh = 2 * oh + dh;
-    if (hh < 0 || hh >= H) continue;
-    for (int dw = -1; dw <= 1; ++dw) {
-      const int ww = 2 * ow + dw;
-      if (ww < 0 || ww >= W) continue;
-      const float v = relu_affine(yn[((long long)hh * W + ww) * C + c], ac, bc);
-      if (v > best) {
-        best = v;
-        bh = hh;
-        bw = ww;
-      }
-    }
-  }
-  return bh == h && bw == w;
+// ---- backward ----
+
+// 8 bf16 channels, two to a word, channel 2i in the low half of w[i]
+struct Chunk {
+  unsigned w[4];
+};
+
+__device__ __forceinline__ Chunk load_chunk(const uint4* p) {
+  const uint4 q = *p;
+  return {{q.x, q.y, q.z, q.w}};
 }
 
-// Requires BWD_THREADS % C == 0, so a thread's channel never changes.
-__global__ void __launch_bounds__(BWD_THREADS) stem_pool_bwd_kernel(
+// a last read of 8 channels from global memory (evict-first in L2)
+__device__ __forceinline__ Chunk load_last(const __nv_bfloat16* p) {
+  const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+  return {{q.x, q.y, q.z, q.w}};
+}
+
+__device__ __forceinline__ void store_chunk(uint4* p, const Chunk& c) {
+  *p = make_uint4(c.w[0], c.w[1], c.w[2], c.w[3]);
+}
+
+__device__ __forceinline__ float channel(const Chunk& c, int k) {
+  const unsigned w = c.w[k >> 1];
+  return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+// two floats rounded to bf16 and packed, the first in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  union {
+    __nv_bfloat162 h;
+    unsigned u;
+  } v;
+  v.h = __floats2bfloat162_rn(lo, hi);
+  return v.u;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one contiguous run of bytes, global -> shared, completing on bar (TMA)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(unsigned u) {
+  union {
+    unsigned u;
+    __nv_bfloat162 h;
+  } v;
+  v.u = u;
+  return v.h;
+}
+
+// d = sum of g over the windows whose code points at element (lh, lw) of
+// the tile: NI window rows, (lh+1)/2 down to lh/2, by NJ columns likewise,
+// last window first; every load is issued before the sums
+template <int NI, int NJ, int CH>
+__device__ __forceinline__ void gather(const uint4* s_g, const unsigned* s_code, int lh,
+                                       int lw, int ch, float* d) {
+  unsigned x[NI * NJ];
+  Chunk gv[NI * NJ];
+#pragma unroll
+  for (int a = 0; a < NI; ++a) {
+#pragma unroll
+    for (int b = 0; b < NJ; ++b) {
+      const int i = ((lh + 1) >> 1) - a;
+      const int j = ((lw + 1) >> 1) - b;
+      const int wp = (i * WC + j) * CH + ch;
+      const unsigned pos = (lh + 1 - 2 * i) * 3 + (lw + 1 - 2 * j);
+      x[a * NJ + b] = s_code[wp] ^ (pos * 0x11111111u);
+      gv[a * NJ + b] = load_chunk(s_g + wp);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) d[k] = 0.f;
+#pragma unroll
+  for (int v = 0; v < NI * NJ; ++v) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (((x[v] >> (4 * k)) & 0xfu) == 0u) d[k] += channel(gv[v], k);
+    }
+  }
+}
+
+// A tile: image n, its first window row and column.
+struct Tile {
+  int n, oh0, ow0;
+};
+
+__device__ __forceinline__ Tile tile_of(long long t, int tiles_per_image, int TW) {
+  const int n = (int)(t / tiles_per_image);
+  const int r = (int)(t - (long long)n * tiles_per_image);
+  return {n, (r / TW) * TOH, (r % TW) * TOW};
+}
+
+// CH = C / 8 chunks of 8 channels per element; BWD_THREADS % CH == 0, so
+// a thread's chunk (threadIdx.x % CH) is the same in every loop below.
+// Shared memory: two stages, each the staged input (y as loaded, then its
+// relu_affine bits in place) and the windows' g, loaded by the TMA one
+// tile ahead (one bulk copy per row, a lane of warp 0 each), so the next
+// tile streams in while this one computes; then the windows' codes.
+template <int CH>
+__global__ void __launch_bounds__(BWD_THREADS, 2) stem_pool_bwd_kernel(
     const __nv_bfloat16* __restrict__ y, const float* __restrict__ a,
     const float* __restrict__ b, const __nv_bfloat16* __restrict__ g,
     __nv_bfloat16* __restrict__ dy, float* __restrict__ da_part,
-    float* __restrict__ db_part, int N, int H, int W, int C) {
-  __shared__ float s_da[BWD_THREADS];
-  __shared__ float s_db[BWD_THREADS];
+    float* __restrict__ db_part, int N, int H, int W) {
+  constexpr int C = 8 * CH;
+  constexpr int STAGED = SR * SC * CH;          // uint4 of staged input
+  constexpr int STAGE = STAGED + WR * WC * CH;  // uint4 per stage, with g
+  constexpr int PSTEP = BWD_THREADS / CH;       // elements a loop step covers
+  static_assert(PSTEP % (2 * TOW) == 0, "a thread keeps its column in the gather");
+  static_assert(SR + WR <= 32, "one lane of warp 0 per staged row");
+  extern __shared__ uint4 smem[];
+  unsigned* s_code = reinterpret_cast<unsigned*>(smem + 2 * STAGE);  // [WR * WC][CH]
+  __shared__ unsigned long long full[2];
+
   const int HO = H / 2;
   const int WO = W / 2;
-  const long long total = (long long)N * H * W * C;
-  const long long base = (long long)blockIdx.x * BWD_THREADS * BWD_ITERS;
-  const int c = threadIdx.x % C;
-  const float ac = a[c];
-  const float bc = b[c];
-  float da = 0.f;
-  float db = 0.f;
-  for (int it = 0; it < BWD_ITERS; ++it) {
-    const long long i = base + (long long)it * BWD_THREADS + threadIdx.x;
-    if (i >= total) break;
-    long long r = i / C;
-    const int w = (int)(r % W);
-    r /= W;
-    const int h = (int)(r % H);
-    const long long n = r / H;
-    const __nv_bfloat16* yn = y + n * H * W * C;
-    const float yv = __bfloat162float(yn[((long long)h * W + w) * C + c]);
-    const float yh = relu_affine(yn[((long long)h * W + w) * C + c], ac, bc);
-    float d = 0.f;
-    if (yh > 0.f) {
-      // windows holding row h: oh in [h/2, (h+1)/2]; same for w. Visit
-      // them from the last to the first, the order in which the plain
-      // version accumulates, so the f32 sums agree bit for bit.
-      const int oh_hi = min((h + 1) / 2, HO - 1);
-      const int ow_hi = min((w + 1) / 2, WO - 1);
-      const __nv_bfloat16* gn = g + n * HO * WO * C;
-      for (int oh = oh_hi; oh >= h / 2; --oh) {
-        for (int ow = ow_hi; ow >= w / 2; --ow) {
-          if (routes_to(yn, ac, bc, H, W, C, c, oh, ow, h, w)) {
-            d += __bfloat162float(gn[((long long)oh * WO + ow) * C + c]);
+  const int TW = (WO + TOW - 1) / TOW;
+  const int tiles_per_image = ((HO + TOH - 1) / TOH) * TW;
+  const long long n_tiles = (long long)N * tiles_per_image;
+  const unsigned ch = threadIdx.x % CH;
+  const unsigned p0 = threadIdx.x / CH;  // first element (or window) of this thread
+  float ac[8], bc[8], da[8], db[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    ac[k] = a[ch * 8 + k];
+    bc[k] = b[ch * 8 + k];
+    da[k] = 0.f;
+    db[k] = 0.f;
+  }
+  // the gather's element: a fixed column, rows p0 / (2*TOW) + ROW_STEP * k;
+  // the 2*TOW columns in the order 0, 2, .., 2*TOW-2, 1, 3, .., so a
+  // warp's lanes share the column parity and visit as many windows
+  constexpr int ROW_STEP = PSTEP / (2 * TOW);
+  const int lw = 2 * ((p0 % (2 * TOW)) % TOW) + (p0 % (2 * TOW)) / TOW;
+
+  // 1. (warp 0) stage tile t's rows of y and g into stage s by the TMA,
+  // one row a lane; padding is left as it was
+  auto stage = [&](long long t, int s) {
+    const Tile tl = tile_of(t, tiles_per_image, TW);
+    uint4* s_y = smem + s * STAGE;
+    uint4* s_g = s_y + STAGED;
+    const int h0 = 2 * tl.oh0 - 1;
+    const int w0 = 2 * tl.ow0 - 1;
+    const int c0 = max(w0, 0);
+    const int c1 = min(w0 + SC, W);
+    const int gc1 = min(tl.ow0 + WC, WO);
+    const int rows = min(h0 + SR, H) - max(h0, 0);
+    const int grows = min(tl.oh0 + WR, HO) - tl.oh0;
+    const unsigned lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect(&full[s], (unsigned)(rows * (c1 - c0) + grows * (gc1 - tl.ow0)) * C * 2);
+    }
+    __syncwarp();
+    const int h = h0 + (int)lane;
+    if (lane < SR && h >= 0 && h < H) {
+      bulk_load(s_y + (lane * SC + c0 - w0) * CH, y + (((size_t)tl.n * H + h) * W + c0) * C,
+                (unsigned)(c1 - c0) * C * 2, &full[s]);
+    }
+    if (lane >= SR && lane < SR + grows) {
+      const int i = lane - SR;
+      bulk_load(s_g + i * WC * CH, g + (((size_t)tl.n * HO + tl.oh0 + i) * WO + tl.ow0) * C,
+                (unsigned)(gc1 - tl.ow0) * C * 2, &full[s]);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 32 && blockIdx.x < n_tiles) stage(blockIdx.x, 0);
+
+  int it = 0;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    const int s = it & 1;
+    const Tile tl = tile_of(t, tiles_per_image, TW);
+    const int h0 = 2 * tl.oh0 - 1;  // staged row 0, column 0
+    const int w0 = 2 * tl.ow0 - 1;
+    uint4* s_yh = smem + s * STAGE;
+    const uint4* s_g = s_yh + STAGED;
+
+    // everyone is done with the other stage (the last tile), and its
+    // writes are ordered before the TMA's
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x < 32 && t + gridDim.x < n_tiles) stage(t + gridDim.x, s ^ 1);
+    mbar_wait(&full[s], (it >> 1) & 1);
+
+    // 2. relu_affine once per staged element, in place; elements in the
+    // padding get 0 below
+    for (unsigned e = threadIdx.x; e < STAGED; e += BWD_THREADS) {
+      const Chunk q = load_chunk(s_yh + e);
+      Chunk out;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lo = fmaxf(__fadd_rn(__fmul_rn(channel(q, 2 * i), ac[2 * i]), bc[2 * i]), 0.f);
+        const float hi =
+            fmaxf(__fadd_rn(__fmul_rn(channel(q, 2 * i + 1), ac[2 * i + 1]), bc[2 * i + 1]), 0.f);
+        out.w[i] = pack_bf16(lo, hi);
+      }
+      store_chunk(s_yh + e, out);
+    }
+    __syncthreads();
+    if (h0 < 0 || w0 < 0 || h0 + SR > H || w0 + SC > W) {
+      // staged rows and columns in the padding: 0, which never takes the
+      // max from an element that could take a gradient
+      const int r0 = max(0, -h0);
+      const int r1 = min(SR, H - h0);
+      const int c0 = max(0, -w0);
+      const int c1 = min(SC, W - w0);
+      for (int e = threadIdx.x; e < SR * SC * CH; e += BWD_THREADS) {
+        const int sr = e / (SC * CH);
+        const int sc = e / CH % SC;
+        if (sr < r0 || sr >= r1 || sc < c0 || sc >= c1) store_chunk(s_yh + e, Chunk{{0u, 0u, 0u, 0u}});
+      }
+      __syncthreads();
+    }
+
+    // 3. first row-major argmax of each window, 4 bits a channel, in one
+    // pass of bf16x2 compares: u counts the positions since the best one,
+    // which a later value replaces only if it is larger. A window whose max
+    // is 0 routes nowhere (0xf, never a position): its argmax is an element
+    // the ReLU mask zeroes, so the gather needs no mask. 0xf too for
+    // windows past the image.
+    for (unsigned p = p0; p < WR * WC; p += PSTEP) {
+      const unsigned i = p / WC;
+      const unsigned j = p % WC;
+      unsigned code = 0xffffffffu;
+      if (tl.oh0 + (int)i < HO && tl.ow0 + (int)j < WO) {
+        const uint4* base = s_yh + ((2 * i) * SC + 2 * j) * CH + ch;
+        Chunk v[9];
+#pragma unroll
+        for (int q = 0; q < 9; ++q) v[q] = load_chunk(base + ((q / 3) * SC + q % 3) * CH);
+        const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
+        code = 0u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          __nv_bfloat162 m = as_bf162(v[0].w[k]);
+          __nv_bfloat162 u = zero;
+#pragma unroll
+          for (int q = 1; q < 9; ++q) {
+            const __nv_bfloat162 vq = as_bf162(v[q].w[k]);
+            const __nv_bfloat162 le = __hle2(vq, m);  // 1: the best stays
+            m = __hmax2(m, vq);
+            u = __hfma2(u, le, le);  // (u + 1) * le
           }
+          // 15 where the max is 0, else the best position 8 - u
+          const __nv_bfloat162 nib =
+              __hfma2(__heq2(m, zero), __hadd2(u, __float2bfloat162_rn(7.f)),
+                      __hsub2(__float2bfloat162_rn(8.f), u));
+          code |= ((unsigned)__low2float(nib) | ((unsigned)__high2float(nib) << 4)) << (8 * k);
         }
       }
+      s_code[p * CH + ch] = code;
     }
-    dy[i] = __float2bfloat16_rn(__fmul_rn(d, ac));
-    da += d * yv;
-    db += d;
+    __syncthreads();
+
+    // 4. gather g into each owned element, dy = d*a, da, db
+    // (y itself read again from global memory, where L2 still holds it)
+    const int w = 2 * tl.ow0 + lw;
+    if (w < W) {
+      const __nv_bfloat16* yn = y + ((size_t)tl.n * H * W + w) * C + ch * 8;
+      __nv_bfloat16* dyn = dy + ((size_t)tl.n * H * W + w) * C + ch * 8;
+      for (int lh = p0 / (2 * TOW); lh < 2 * TOH; lh += ROW_STEP) {
+        const int h = 2 * tl.oh0 + lh;
+        if (h >= H) break;
+        const size_t off = (size_t)h * W * C;
+        const Chunk yr = load_last(yn + off);
+        float d[8];
+        if (lh & 1) {
+          if (lw & 1) gather<2, 2, CH>(s_g, s_code, lh, lw, ch, d);
+          else gather<2, 1, CH>(s_g, s_code, lh, lw, ch, d);
+        } else if (lw & 1) {
+          gather<1, 2, CH>(s_g, s_code, lh, lw, ch, d);
+        } else {
+          gather<1, 1, CH>(s_g, s_code, lh, lw, ch, d);
+        }
+        Chunk out;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float v[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int k = 2 * i + u;
+            v[u] = __fmul_rn(d[k], ac[k]);
+            da[k] += d[k] * channel(yr, k);
+            db[k] += d[k];
+          }
+          out.w[i] = pack_bf16(v[0], v[1]);
+        }
+        // streaming store: dy is not read again, so it should not push
+        // the y lines this loop still reads out of L2
+        __stcs(reinterpret_cast<uint4*>(dyn + off), make_uint4(out.w[0], out.w[1], out.w[2], out.w[3]));
+      }
+    }
   }
-  s_da[threadIdx.x] = da;
-  s_db[threadIdx.x] = db;
+
+  // 5. one partial row per block, summed over the threads of each chunk in
+  // a fixed order
   __syncthreads();
-  if (threadIdx.x < C) {
+  float* red = reinterpret_cast<float*>(smem);  // [BWD_THREADS][16]
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    red[threadIdx.x * 16 + k] = da[k];
+    red[threadIdx.x * 16 + 8 + k] = db[k];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += BWD_THREADS) {
+    const int k = c % 8;
     float sa = 0.f;
     float sb = 0.f;
-    for (int j = threadIdx.x; j < BWD_THREADS; j += C) {
-      sa += s_da[j];
-      sb += s_db[j];
+    for (int t = c / 8; t < BWD_THREADS; t += CH) {
+      sa += red[t * 16 + k];
+      sb += red[t * 16 + 8 + k];
     }
-    da_part[(long long)blockIdx.x * C + threadIdx.x] = sa;
-    db_part[(long long)blockIdx.x * C + threadIdx.x] = sb;
+    da_part[(size_t)blockIdx.x * C + c] = sa;
+    db_part[(size_t)blockIdx.x * C + c] = sb;
   }
+}
+
+// da[c], db[c]: block c sums column c of the partial rows, SUM_THREADS
+// strided runs then a tree over the runs; a fixed order for a given row
+// count, so the same bits on every run
+__global__ void __launch_bounds__(SUM_THREADS) stem_pool_bwd_sum_kernel(
+    const float* __restrict__ da_part, const float* __restrict__ db_part,
+    float* __restrict__ da, float* __restrict__ db, int parts, int C) {
+  __shared__ float sa[SUM_THREADS];
+  __shared__ float sb[SUM_THREADS];
+  const int c = blockIdx.x;
+  float ta = 0.f;
+  float tb = 0.f;
+  for (int p = threadIdx.x; p < parts; p += SUM_THREADS) {
+    ta += da_part[(size_t)p * C + c];
+    tb += db_part[(size_t)p * C + c];
+  }
+  sa[threadIdx.x] = ta;
+  sb[threadIdx.x] = tb;
+  __syncthreads();
+  for (int half = SUM_THREADS / 2; half > 0; half /= 2) {
+    if (threadIdx.x < half) {
+      sa[threadIdx.x] += sa[threadIdx.x + half];
+      sb[threadIdx.x] += sb[threadIdx.x + half];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    da[c] = sa[0];
+    db[c] = sb[0];
+  }
+}
+
+template <int CH>
+size_t bwd_smem_bytes() {
+  const size_t tile = (size_t)2 * (SR * SC + WR * WC) * CH * 16 + (size_t)WR * WC * CH * 4;
+  const size_t red = (size_t)BWD_THREADS * 16 * sizeof(float);
+  return tile > red ? tile : red;
+}
+
+// blocks of the persistent grid: what the card holds at once, at most one
+// per tile; 0 if the kernel cannot launch
+template <int CH>
+int bwd_parts(int N, int H, int W) {
+  const size_t smem = bwd_smem_bytes<CH>();
+  if (cudaFuncSetAttribute(stem_pool_bwd_kernel<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess) {
+    return 0;
+  }
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stem_pool_bwd_kernel<CH>,
+                                                    BWD_THREADS, smem) != cudaSuccess) {
+    return 0;
+  }
+  const long long tiles =
+      (long long)N * ((H / 2 + TOH - 1) / TOH) * ((W / 2 + TOW - 1) / TOW);
+  const long long parts = (long long)per_sm * sms;
+  return (int)(parts < tiles ? parts : tiles);
+}
+
+template <int CH>
+int bwd_launch(const void* y, const float* a, const float* b, const void* g, void* dy,
+               float* da_part, float* db_part, float* da, float* db, int N, int H, int W,
+               int parts, cudaStream_t s) {
+  const size_t smem = bwd_smem_bytes<CH>();
+  cudaError_t err = cudaFuncSetAttribute(
+      stem_pool_bwd_kernel<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stem_pool_bwd_kernel<CH><<<parts, BWD_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(y), a, b, static_cast<const __nv_bfloat16*>(g),
+      static_cast<__nv_bfloat16*>(dy), da_part, db_part, N, H, W);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int C = 8 * CH;
+  stem_pool_bwd_sum_kernel<<<C, SUM_THREADS, 0, s>>>(da_part, db_part, da, db, parts, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -171,16 +553,34 @@ extern "C" int avid_stem_pool_fwd(const void* y, const float* a, const float* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// y (N, H, W, C) bf16; g (N, H/2, W/2, C) bf16; dy like y;
-// da_part, db_part (n_blocks, C) f32 with
-// n_blocks = ceil(N*H*W*C / (256 * 64)).
+// Rows of the da_part / db_part scratch that avid_stem_pool_bwd needs for
+// this shape on the current device; 0 if it cannot run it (C must be one
+// of 8, 16, 32, 64, 128).
+extern "C" int avid_stem_pool_bwd_parts(int N, int H, int W, int C) {
+  switch (C) {
+    case 8: return bwd_parts<1>(N, H, W);
+    case 16: return bwd_parts<2>(N, H, W);
+    case 32: return bwd_parts<4>(N, H, W);
+    case 64: return bwd_parts<8>(N, H, W);
+    case 128: return bwd_parts<16>(N, H, W);
+    default: return 0;
+  }
+}
+
+// y (N, H, W, C) bf16; g (N, H/2, W/2, C) bf16; dy like y; da_part,
+// db_part (parts, C) f32 scratch with parts = avid_stem_pool_bwd_parts;
+// da, db (C,) f32. Two launches on `stream`: the pass, then the sum.
 extern "C" int avid_stem_pool_bwd(const void* y, const float* a, const float* b,
                                   const void* g, void* dy, float* da_part,
-                                  float* db_part, int N, int H, int W, int C,
-                                  int n_blocks, void* stream) {
-  stem_pool_bwd_kernel<<<n_blocks, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(y), a, b,
-      static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dy),
-      da_part, db_part, N, H, W, C);
-  return static_cast<int>(cudaGetLastError());
+                                  float* db_part, float* da, float* db, int N,
+                                  int H, int W, int C, int parts, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 8: return bwd_launch<1>(y, a, b, g, dy, da_part, db_part, da, db, N, H, W, parts, s);
+    case 16: return bwd_launch<2>(y, a, b, g, dy, da_part, db_part, da, db, N, H, W, parts, s);
+    case 32: return bwd_launch<4>(y, a, b, g, dy, da_part, db_part, da, db, N, H, W, parts, s);
+    case 64: return bwd_launch<8>(y, a, b, g, dy, da_part, db_part, da, db, N, H, W, parts, s);
+    case 128: return bwd_launch<16>(y, a, b, g, dy, da_part, db_part, da, db, N, H, W, parts, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -45,13 +45,17 @@ LAUNCHES: Dict[str, int] = {
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (csrc/*.cu); every function returns a cudaError_t as int
 _SIGNATURES = {
-    # sig, win, cos, sin, mean, std, out, scratch, B, L, T, frame_len, hop,
-    # top_db, use_top_db, stream
-    "avid_spectrogram": [_VP] * 8 + [_I] * 5 + [_F, _I, _VP],
+    # B, T, frame_len -> floats of the scratch avid_spectrogram needs
+    "avid_spectrogram_scratch": [_I] * 3,
+    # sig, basis, mean, std, out, scratch, B, L, T, frame_len, hop, top_db,
+    # use_top_db, normalize, stream
+    "avid_spectrogram": [_VP] * 6 + [_I] * 5 + [_F, _I, _I, _VP],
     # y, a, b, out, N, H, W, C, stream
     "avid_stem_pool_fwd": [_VP] * 4 + [_I] * 4 + [_VP],
-    # y, a, b, g, dy, da_part, db_part, N, H, W, C, n_blocks, stream
-    "avid_stem_pool_bwd": [_VP] * 7 + [_I] * 5 + [_VP],
+    # N, H, W, C -> rows of the da/db partial sums avid_stem_pool_bwd needs
+    "avid_stem_pool_bwd_parts": [_I] * 4,
+    # y, a, b, g, dy, da_part, db_part, da, db, N, H, W, C, parts, stream
+    "avid_stem_pool_bwd": [_VP] * 9 + [_I] * 5 + [_VP],
     # bank, idx, q, out, B, K, N, D, temperature, stream
     "avid_nce_scores": [_VP] * 4 + [_I] * 4 + [_F, _VP],
     # x, w_spatial, w_temporal, scale, bias, out, B, T, H, W, C, is_bf16, stream

@@ -21,16 +21,33 @@ from avid_cma_tpu_torch.ops.kernels import _lib
 plain_log_spectrogram = stft.log_spectrogram
 
 
+def packed_basis(frame_len: int) -> np.ndarray:
+    """The windowed real-DFT basis in K1's column order, (frame_len,
+    frame_len) float32: column 4q+e holds, for e = 0, 1, 2, 3, the cos and
+    sin of bin 2q+1, then of bin 2q+2, times the Hann window, so that each
+    group of four columns is one folded output bin q+1. The sin of bins 0
+    and frame_len/2 is zero, so the last group's fourth column (the sin of
+    the Nyquist bin) carries the cos of bin 0 instead: 513 bins of (re, im)
+    in 1024 columns."""
+    cos, sin = stft.dft_matrices(frame_len)
+    basis = np.empty((frame_len, frame_len // 4, 4), np.float32)
+    basis[:, :, 0] = cos[:, 1::2]
+    basis[:, :, 1] = sin[:, 1::2]
+    basis[:, :, 2] = cos[:, 2::2]
+    basis[:, :, 3] = sin[:, 2::2]
+    basis[:, -1, 3] = cos[:, 0]
+    basis *= stft.hann_periodic(frame_len)[:, None, None]
+    return basis.reshape(frame_len, frame_len)
+
+
 @functools.lru_cache(maxsize=None)
 def _constants(frame_len: int, n_fft: int, sample_rate: int, normalize: bool,
                device: torch.device) -> Tuple[torch.Tensor, ...]:
-    cos_np, sin_np = stft.dft_matrices(frame_len)
     if normalize:
         mean, std = stft.load_norm_stats(n_fft, sample_rate)
-    else:
-        mean = np.zeros(n_fft // 2 + 1, np.float32)
-        std = np.ones(n_fft // 2 + 1, np.float32)
-    arrays = (stft.hann_periodic(frame_len), cos_np, sin_np, mean, std)
+    else:  # not read by the kernel
+        mean = std = np.zeros(n_fft // 2 + 1, np.float32)
+    arrays = (packed_basis(frame_len), mean, std)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
 
 
@@ -58,16 +75,19 @@ def log_spectrogram_kernel(
     if length <= frame_len // 2:
         raise ValueError(f"reflect padding needs L > {frame_len // 2}, got {length}")
     t = stft.num_frames(length, hop, duration, hop_size)
-    win, cos_m, sin_m, mean, std = _constants(
-        frame_len, n_fft, sample_rate, normalize, sig.device)
+    kernels = _lib.lib()
+    n_scratch = kernels.avid_spectrogram_scratch(bsz, t, frame_len)
+    if n_scratch < 1:
+        raise ValueError(f"kernel K1 takes n_fft a multiple of 64, got {n_fft}")
+    basis, mean, std = _constants(frame_len, n_fft, sample_rate, normalize, sig.device)
     out = torch.empty((bsz, t, n_fft // 2 + 1), dtype=torch.float32, device=sig.device)
-    scratch = torch.empty((bsz * t, n_fft + 1), dtype=torch.float32, device=sig.device)
-    err = _lib.lib().avid_spectrogram(
-        sig.data_ptr(), win.data_ptr(), cos_m.data_ptr(), sin_m.data_ptr(),
-        mean.data_ptr(), std.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        bsz, length, t, frame_len, hop,
+    # each frame's max dB per tile of columns, for the per-sample top_db max
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=sig.device)
+    err = kernels.avid_spectrogram(
+        sig.data_ptr(), basis.data_ptr(), mean.data_ptr(), std.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), bsz, length, t, frame_len, hop,
         float(top_db if top_db is not None else 0.0), int(top_db is not None),
-        _lib.stream(),
+        int(normalize), _lib.stream(),
     )
     _lib.check(err, "avid_spectrogram")
     _lib.LAUNCHES["spectrogram"] += 1

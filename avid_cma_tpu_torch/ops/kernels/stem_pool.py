@@ -29,9 +29,6 @@ import torch.nn.functional as F
 
 from avid_cma_tpu_torch.ops.kernels import _lib
 
-_BWD_ELEMS_PER_BLOCK = 256 * 64  # BWD_THREADS * BWD_ITERS in csrc/stem_pool.cu
-
-
 def _relu_affine(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """relu(y*a + b) in f32, rounded once to y.dtype."""
     return torch.relu(y.float() * a + b).to(y.dtype)
@@ -112,19 +109,22 @@ def stem_pool_bwd(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return plain_bwd(y, a, b, g)
     n, h, w, c = _check_shapes(y, a, b)
     _lib.require(g, "g", torch.bfloat16, (n, h // 2, w // 2, c))
-    if 256 % c:
-        raise ValueError(f"C must divide 256, got {c}")
-    n_blocks = -(-(n * h * w * c) // _BWD_ELEMS_PER_BLOCK)
+    kernels = _lib.lib()
+    # the kernel's persistent grid, one partial row of da and db per block
+    parts = kernels.avid_stem_pool_bwd_parts(n, h, w, c)
+    if parts < 1:
+        raise ValueError(f"the backward kernel takes no (N, H, W, C) = {(n, h, w, c)}: "
+                         "it needs N, H, W > 0 and C in 8, 16, 32, 64, 128")
     dy = torch.empty_like(y)
-    da_part = torch.empty((n_blocks, c), dtype=torch.float32, device=y.device)
-    db_part = torch.empty((n_blocks, c), dtype=torch.float32, device=y.device)
-    err = _lib.lib().avid_stem_pool_bwd(
+    scratch = torch.empty((2, parts, c), dtype=torch.float32, device=y.device)
+    sums = torch.empty((2, c), dtype=torch.float32, device=y.device)
+    err = kernels.avid_stem_pool_bwd(
         y.data_ptr(), a.data_ptr(), b.data_ptr(), g.data_ptr(), dy.data_ptr(),
-        da_part.data_ptr(), db_part.data_ptr(), n, h, w, c, n_blocks,
-        _lib.stream())
+        scratch[0].data_ptr(), scratch[1].data_ptr(), sums[0].data_ptr(),
+        sums[1].data_ptr(), n, h, w, c, parts, _lib.stream())
     _lib.check(err, "avid_stem_pool_bwd")
     _lib.LAUNCHES["stem_pool_bwd"] += 1
-    return dy, da_part.sum(0), db_part.sum(0)
+    return dy, sums[0], sums[1]
 
 
 class ScaleReluPool(torch.autograd.Function):

@@ -28,8 +28,9 @@ from avid_cma_tpu_torch.criterions.avid import avid_forward
 from avid_cma_tpu_torch.data.pipelines import preprocess_batch
 from avid_cma_tpu_torch.train.builders import build_pretrain, kinetics_cross_n1024
 
-OWN_KERNELS = {"stft_power_kernel": "K1", "fold_db_norm_kernel": "K1",
+OWN_KERNELS = {"stft_power_kernel": "K1", "db_clamp_norm_kernel": "K1",
                "stem_pool_fwd_kernel": "K2", "stem_pool_bwd_kernel": "K3",
+               "stem_pool_bwd_sum_kernel": "K3",
                "nce_scores_kernel": "K4"}
 
 

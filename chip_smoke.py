@@ -7,7 +7,10 @@
 2. holds each kernel (K1 spectrogram, K2/K3 stem pool fwd/bwd, K4 NCE
    gather, K5 fused (2+1)D conv pair) against its plain PyTorch version on
    the card at the shapes of the Kinetics slices (K5 at the four R2Plus1D-18
-   stage shapes), and times kernel and plain version with CUDA events;
+   stage shapes), and times kernel and plain version with CUDA events
+   (K1's and K3's two launches apart with torch.profiler; beside K1,
+   cuBLAS's f32 product of its DFT's shape as a reference; K3's da/db
+   must be the same bits on two calls);
 3. runs one train step, and one eval-mode forward, at a small size on the
    card and on the CPU from the same weights and inputs and compares loss,
    Z and bank rows, and the embeddings;
@@ -131,6 +134,25 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def launch_split_ms(fn, names, iters: int = 10) -> dict:
+    """Device ms per call of each kernel that fn() launches, by the name it
+    contains: the kernels' intervals in a torch.profiler trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.name:
+                split[n] += (e.time_range.end - e.time_range.start) / 1e3 / iters
+    return split
+
+
 def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -180,6 +202,15 @@ def check_spectrogram(results: dict) -> None:
     report(results, "spectrogram", f"{b} x {n}", err, err, 1e-4,
            lambda: spectrogram.log_spectrogram_kernel(x, **kw),
            lambda: stft.log_spectrogram(x, **kw), nbytes, flops)
+    split = launch_split_ms(lambda: spectrogram.log_spectrogram_kernel(x, **kw),
+                            ("stft_power_kernel", "db_clamp_norm_kernel"))
+    # reachability reference, never called by the port: the DFT's f32
+    # product alone, (B*T, frame_len) @ (frame_len, 2 * 513), TF32 off
+    fa = torch.randn((b * frames, 1024), device="cuda")
+    fb = torch.randn((1024, 2 * 513), device="cuda")
+    print(json.dumps({"name": KERNELS["spectrogram"]["name"], "launch_ms": split,
+                      "ref_sgemm_ms": time_ms(lambda: torch.matmul(fa, fb), 20),
+                      "ref_sgemm_shape": [list(fa.shape), list(fb.shape)]}), flush=True)
 
 
 def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -214,15 +245,21 @@ def check_stem_pool(results: dict) -> None:
                n_in * 2 + n_out * 2 + 2 * c * 4, 0.0)
 
         dy, da, db = stem_pool.stem_pool_bwd(y, a, b, g)
+        _, da2, db2 = stem_pool.stem_pool_bwd(y, a, b, g)
+        same_bits = bool(torch.equal(da, da2) and torch.equal(db, db2))
         rdy, rda, rdb = stem_pool.plain_bwd(y, a, b, g)
         diff = (dy.float() - rdy.float()).abs()
         ulps = float((diff / _bf16_ulp(rdy)).max())
         err = float(diff.max())
         rel_a = float((da - rda).abs().max() / rda.abs().max())
         rel_b = float((db - rdb).abs().max() / rdb.abs().max())
+        split = launch_split_ms(lambda: stem_pool.stem_pool_bwd(y, a, b, g),
+                                ("stem_pool_bwd_kernel", "stem_pool_bwd_sum_kernel"))
         print(json.dumps({"name": "K3 stem_pool_bwd", "case": case, "da_rel": rel_a,
-                          "db_rel": rel_b, "tol": 2e-3}), flush=True)
+                          "db_rel": rel_b, "tol": 2e-3, "da_db_same_bits_twice": same_bits,
+                          "launch_ms": split}), flush=True)
         require(max(rel_a, rel_b) <= 2e-3, f"K3 ({case}): da/db off by {rel_a}, {rel_b}")
+        require(same_bits, f"K3 ({case}): da/db differ between two calls")
         # max_err: dy in bf16 ulps of the plain value
         report(results, "stem_pool_bwd", case, err, ulps, 1.0,
                lambda: stem_pool.stem_pool_bwd(y, a, b, g),

@@ -57,16 +57,47 @@ def test_spectrogram_kernel_matches_plain(dev, normalize, top_db):
     assert float((got - ref).abs().max()) < tol
 
 
+# K1 tiles 80 frames by 128 packed columns (32 output bins); frames come
+# from the waveform by 16-byte copies unless a frame touches the reflect
+# padding or the waveform is not 16-byte aligned (odd L)
+@pytest.mark.parametrize("shape", [(1, 12000), (3, 12001), (5, 7201)],
+                         ids=["b1", "odd-length", "ragged-rows"])
+def test_spectrogram_kernel_ragged_shapes(dev, shape):
+    rng = np.random.default_rng(10)
+    sig = torch.from_numpy((0.1 * rng.standard_normal(shape) + 0.05)
+                           .astype(np.float32)).to(dev)
+    kw = dict(sample_rate=24000, n_fft=512, hop_size=0.01, duration=None)
+    got = spectrogram.log_spectrogram_kernel(sig, **kw)
+    ref = stft.log_spectrogram(sig, **kw)
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) < 1e-4
+    # bin 0 (DC) and the last bin (it folds in the Nyquist bin) on their own
+    for k in (0, 256):
+        assert float((got[:, :, k] - ref[:, :, k]).abs().max()) < 1e-4
+
+
+def test_spectrogram_kernel_unnormalized_is_the_db(dev):
+    """normalize=False returns the dB itself, as the JAX kernel does: the
+    first K1 divided it by 1 + 1e-5, which a 190 dB signal shows."""
+    rng = np.random.default_rng(11)
+    sig = torch.from_numpy((1e8 * (rng.standard_normal((2, 12000)) + 0.5))
+                           .astype(np.float32)).to(dev)
+    kw = dict(sample_rate=24000, n_fft=512, hop_size=0.01, duration=None,
+              normalize=False, top_db=None)
+    got = spectrogram.log_spectrogram_kernel(sig, **kw)
+    ref = stft.log_spectrogram(sig, **kw)
+    assert float(ref.max()) > 180.0
+    assert float((got - ref).abs().max()) < 1.7e-3
+
+
 def _bf16_ulp(v):
     av = v.float().abs()
     e = torch.floor(torch.log2(torch.where(av > 0, av, torch.ones_like(av))))
     return torch.where(av > 0, torch.exp2(e - 7), torch.full_like(av, 2.0 ** -133))
 
 
-@pytest.mark.parametrize("shape", [(2, 6, 10, 64), (3, 8, 4, 8)], ids=["c64", "c8"])
-@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
-def test_stem_pool_kernels_match_plain(dev, shape, ties):
-    rng = np.random.default_rng(1)
+def _stem_inputs(dev, shape, ties, seed=1):
+    rng = np.random.default_rng(seed)
     y = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
     c = shape[-1]
     if ties:
@@ -75,16 +106,71 @@ def test_stem_pool_kernels_match_plain(dev, shape, ties):
     else:
         a = torch.from_numpy((rng.standard_normal(c) * 0.5 + 1.0).astype(np.float32)).to(dev)
         b = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(np.float32)).to(dev)
-    y = y.to(torch.bfloat16)
     g = torch.from_numpy(rng.standard_normal(
         (shape[0], shape[1] // 2, shape[2] // 2, c), dtype=np.float32)).to(dev).to(torch.bfloat16)
-    out = stem_pool.stem_pool_fwd(y, a, b)
-    assert torch.equal(out, stem_pool.plain_fwd(y, a, b))
+    return y.to(torch.bfloat16), a, b, g
+
+
+def _check_stem_bwd(y, a, b, g):
+    """K3 against its plain version: dy within 1 bf16 ulp, da/db 2e-3."""
     dy, da, db = stem_pool.stem_pool_bwd(y, a, b, g)
     rdy, rda, rdb = stem_pool.plain_bwd(y, a, b, g)
     assert float(((dy.float() - rdy.float()).abs() / _bf16_ulp(rdy)).max()) <= 1.0
     torch.testing.assert_close(da, rda, rtol=2e-3, atol=1e-3)
     torch.testing.assert_close(db, rdb, rtol=2e-3, atol=1e-3)
+    return da, db
+
+
+# K3 walks tiles of 7 x 8 windows (14 x 16 elements): shapes where the
+# tiles do not divide H, W (9 x 17 windows) or fill a grid, one image of
+# one window, and every channel count the kernel takes
+@pytest.mark.parametrize("shape", [
+    (2, 6, 10, 64), (3, 8, 4, 8), (1, 2, 2, 64), (3, 18, 34, 64), (2, 18, 34, 8),
+    (1, 34, 20, 16), (1, 20, 18, 32), (1, 18, 18, 128),
+], ids=["c64", "c8", "n1-2x2", "ragged-c64", "ragged-c8", "c16", "c32", "c128"])
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+def test_stem_pool_kernels_match_plain(dev, shape, ties):
+    y, a, b, g = _stem_inputs(dev, shape, ties)
+    out = stem_pool.stem_pool_fwd(y, a, b)
+    assert torch.equal(out, stem_pool.plain_fwd(y, a, b))
+    _check_stem_bwd(y, a, b, g)
+
+
+def test_stem_pool_bwd_tile_edge_windows(dev):
+    """Element row 13 and column 15 are the last of a tile: the windows on
+    both sides of the tile edge (rows 6 and 7, columns 7 and 8) take their
+    max there, so one element gathers from windows that two tiles stage."""
+    y, a, b, g = _stem_inputs(dev, (2, 34, 34, 64), False, seed=7)
+    y[:, 13, :, :] = 8.0
+    y[:, :, 15, :] = 8.0
+    a, b = a.abs() + 0.5, torch.zeros_like(b)
+    _check_stem_bwd(y, a, b, g)
+
+
+def test_stem_pool_bwd_sums_are_reproducible(dev):
+    """Persistent blocks walk several tiles each; da/db are the same bits
+    from call to call (no float atomics)."""
+    y, a, b, g = _stem_inputs(dev, (16, 112, 112, 64), False, seed=8)
+    da, db = _check_stem_bwd(y, a, b, g)
+    _, da2, db2 = stem_pool.stem_pool_bwd(y, a, b, g)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+
+
+# the first K3 summed partials of 256 x 64 elements, a size the wrapper
+# copied by hand; the kernel library now reports its partial count
+@pytest.mark.parametrize("shape", [(1, 16, 16, 64), (1, 18, 16, 64), (3, 16, 18, 64)])
+def test_stem_pool_bwd_partials_straddling_old_block(dev, shape):
+    n, h, w, c = shape
+    assert _lib.lib().avid_stem_pool_bwd_parts(n, h, w, c) >= 1
+    _check_stem_bwd(*_stem_inputs(dev, shape, False, seed=9))
+
+
+@pytest.mark.parametrize("c", [24, 256])
+def test_stem_pool_bwd_rejects_channel_counts_it_cannot_take(dev, c):
+    y, a, b, g = _stem_inputs(dev, (1, 4, 4, c), False)
+    assert _lib.lib().avid_stem_pool_bwd_parts(1, 4, 4, c) == 0
+    with pytest.raises(ValueError, match="C in 8"):
+        stem_pool.stem_pool_bwd(y, a, b, g)
 
 
 def test_scale_relu_pool_autograd_on_card(dev):

@@ -21,7 +21,7 @@ import torch
 from avid_cma_tpu.ops.pallas.spectrogram import log_spectrogram_pallas
 from avid_cma_tpu.ops.stft import log_spectrogram as jax_log_spectrogram
 from avid_cma_tpu_torch.ops import stft as port_stft
-from avid_cma_tpu_torch.ops.kernels.spectrogram import log_spectrogram_kernel
+from avid_cma_tpu_torch.ops.kernels.spectrogram import log_spectrogram_kernel, packed_basis
 
 KW = dict(sample_rate=24000, n_fft=512, hop_size=0.01, duration=2.0)
 TOL = 1e-4
@@ -77,3 +77,36 @@ def test_frame_count_truncation():
 def test_wrapper_takes_plain_version_on_cpu(port_out):
     out = log_spectrogram_kernel(torch.from_numpy(_signal()), **KW)
     np.testing.assert_array_equal(out.numpy(), port_out)
+
+
+def _kernel_algorithm(sig: torch.Tensor, top_db=100.0, normalize=True) -> torch.Tensor:
+    """K1's arithmetic written out in torch (csrc/spectrogram.cu): frames
+    times the packed basis in f32, each group of four columns folded into
+    one bin (the last group's fourth column is bin 0 and its third the
+    Nyquist bin, whose sin is zero), dB, the per-sample clamp, normalize."""
+    frame_len, hop = 1024, 240
+    frames = port_stft.frame_signal(sig, frame_len, hop)[:, :200]
+    v = torch.matmul(frames, torch.from_numpy(packed_basis(frame_len)))
+    v = v.reshape(*v.shape[:-1], frame_len // 4, 4)
+    p1 = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+    p2 = v[..., 2] * v[..., 2] + v[..., 3] * v[..., 3]
+    p2[..., -1] = v[..., -1, 2] * v[..., -1, 2]
+    fold = torch.cat([v[..., -1:, 3] * v[..., -1:, 3], (p1 + p2) * 0.5], dim=-1)
+    db = 10.0 * torch.log10(torch.clamp(fold, min=1e-10))
+    if top_db is not None:
+        db = torch.maximum(db, db.amax(dim=(-2, -1), keepdim=True) - top_db)
+    if normalize:
+        mean, std = port_stft.load_norm_stats(512, 24000)
+        db = (db - torch.from_numpy(mean)) / (torch.from_numpy(std) + 1e-5)
+    return db[..., None]
+
+
+@pytest.mark.parametrize("normalize,top_db", [(True, 100.0), (False, None)])
+def test_packed_basis_and_fold_match_plain(port_out, normalize, top_db):
+    """The kernel's packed basis and epilogue, run on the CPU, give the
+    plain version's output: 1e-4 normalized, 1e-4 * 17 dB un-normalized."""
+    sig = torch.from_numpy(_signal())
+    got = _kernel_algorithm(sig, top_db, normalize).numpy()
+    ref = port_stft.log_spectrogram(sig, **KW, normalize=normalize, top_db=top_db).numpy()
+    assert got.shape == ref.shape == (2, 200, 257, 1)
+    assert np.abs(got - ref).max() < (TOL if normalize else TOL * 17.0)
