@@ -18,8 +18,29 @@
 // shape (256, 112, 112, 64)) and writes the pooled output (103 MB);
 // backward reads y and g and writes dy (925 MB, 0.276 ms at 3.35 TB/s).
 //
-// Forward design (K2): one thread per output element, channels innermost
-// so a warp reads contiguous channels; neighbour re-reads hit L1/L2.
+// Forward design (K2). The first form, one thread per output element and
+// channel with nine 2-byte loads, nine relu_affines (each element affined
+// about 2.25 times: windows overlap) and 64-bit index division, ran at
+// 0.71 ms, 22% of the bytes bound (H100 80GB HBM3, 700 W). Now it shares
+// K3's staging: a persistent block walks tiles of FOH x FOW windows of one
+// image across all C channels, and
+//  1. the TMA stages the next tile's (2*FOH+1) x (2*FOW+1) input elements
+//     (the windows and their top row and left column of halo) while this
+//     one computes: one bulk copy per staged row, a lane of warp 0 each,
+//     completing on an mbarrier;
+//  2. relu_affine runs once per staged element, in place, as bf16; staged
+//     elements in the padding are then set to 0. That is exact: every
+//     window holds its in-bounds centre (2oh, 2ow), and relu >= 0, so a 0
+//     never raises a window's max above its in-bounds elements';
+//  3. the max is separable: a thread keeps one window column and 8
+//     channels (one 16-byte word, four bf16x2) and takes the 3-wide row max
+//     of each staged row it needs, then the 3-high max of those, with
+//     __hmax2, so a row max shared by two windows is taken once;
+//  4. each output word is written with one 16-byte streaming store.
+// With 74 KB of shared memory a block at C = 64, three blocks share an SM,
+// so some six tiles are in flight on each. Unlike K3 the pass is bound by
+// bytes, not by instruction throughput: about 0.20 ms on the same card,
+// 77% of the bound.
 //
 // Backward design (K3). The first form, one thread per input element and
 // channel with 2-byte loads, recomputed the first argmax of each of its up
@@ -59,6 +80,11 @@
 namespace {
 
 constexpr int FWD_THREADS = 256;
+constexpr int FOH = 8;              // K2: windows per tile, rows
+constexpr int FOW = 8;              // K2: windows per tile, columns
+constexpr int FRUN = 2;             // K2: window rows a thread takes
+constexpr int FSR = 2 * FOH + 1;    // K2: input rows staged
+constexpr int FSC = 2 * FOW + 1;
 
 constexpr int BWD_THREADS = 256;
 constexpr int TOH = 7;              // windows per tile, rows
@@ -69,44 +95,6 @@ constexpr int SR = 2 * TOH + 3;     // input rows staged
 constexpr int SC = 2 * TOW + 3;
 constexpr int OWN = 4 * TOH * TOW;  // input elements a tile writes
 constexpr int SUM_THREADS = 256;
-
-__device__ __forceinline__ float relu_affine(__nv_bfloat16 y, float a, float b) {
-  const float h = fmaxf(__fadd_rn(__fmul_rn(__bfloat162float(y), a), b), 0.f);
-  return __bfloat162float(__float2bfloat16_rn(h));
-}
-
-__global__ void __launch_bounds__(FWD_THREADS) stem_pool_fwd_kernel(
-    const __nv_bfloat16* __restrict__ y, const float* __restrict__ a,
-    const float* __restrict__ b, __nv_bfloat16* __restrict__ out, int N,
-    int H, int W, int C) {
-  const int HO = H / 2;
-  const int WO = W / 2;
-  const long long total = (long long)N * HO * WO * C;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int c = (int)(i % C);
-  long long r = i / C;
-  const int ow = (int)(r % WO);
-  r /= WO;
-  const int oh = (int)(r % HO);
-  const long long n = r / HO;
-  const float ac = a[c];
-  const float bc = b[c];
-  const __nv_bfloat16* yn = y + n * H * W * C;
-  float m = -INFINITY;
-  for (int dh = -1; dh <= 1; ++dh) {
-    const int h = 2 * oh + dh;
-    if (h < 0 || h >= H) continue;
-    for (int dw = -1; dw <= 1; ++dw) {
-      const int w = 2 * ow + dw;
-      if (w < 0 || w >= W) continue;
-      m = fmaxf(m, relu_affine(yn[((long long)h * W + w) * C + c], ac, bc));
-    }
-  }
-  out[i] = __float2bfloat16_rn(m);
-}
-
-// ---- backward ----
 
 // 8 bf16 channels, two to a word, channel 2i in the low half of w[i]
 struct Chunk {
@@ -188,6 +176,222 @@ __device__ __forceinline__ __nv_bfloat162 as_bf162(unsigned u) {
   return v.h;
 }
 
+// ---- staging, shared by K2 and K3 ----
+
+// A tile: image n, its first window row and column.
+struct Tile {
+  int n, oh0, ow0;
+};
+
+// tile t of tiles of TH x TWD windows, TW tiles to a row of windows
+template <int TH, int TWD>
+__device__ __forceinline__ Tile tile_of(long long t, int tiles_per_image, int TW) {
+  const int n = (int)(t / tiles_per_image);
+  const int r = (int)(t - (long long)n * tiles_per_image);
+  return {n, (r / TW) * TH, (r % TW) * TWD};
+}
+
+// A box: R x Q elements of an H x W image, all C channels, its first row
+// and column h0, w0 (-1 where the box starts in the padding). The TMA
+// stages the part inside the image, staged row r and column q at
+// (r * Q + q) * CH in shared memory; the rest is left as it was.
+
+// bytes of the box inside the image, what its row copies bring
+__device__ __forceinline__ unsigned box_bytes(int h0, int w0, int R, int Q, int H, int W,
+                                              int C) {
+  const int rows = min(h0 + R, H) - max(h0, 0);
+  const int cols = min(w0 + Q, W) - max(w0, 0);
+  return (unsigned)(rows * cols) * C * 2;
+}
+
+// box row r of image n of x into s, by one bulk copy completing on bar;
+// nothing for a row outside the box or the image
+template <int CH>
+__device__ __forceinline__ void stage_row(uint4* s, const __nv_bfloat16* x, int n, int h0,
+                                          int w0, int R, int Q, int H, int W, int r,
+                                          unsigned long long* bar) {
+  constexpr int C = 8 * CH;
+  const int h = h0 + r;
+  if (r < 0 || r >= R || h < 0 || h >= H) return;
+  const int c0 = max(w0, 0);
+  const int c1 = min(w0 + Q, W);
+  bulk_load(s + (r * Q + c0 - w0) * CH, x + (((size_t)n * H + h) * W + c0) * C,
+            (unsigned)(c1 - c0) * C * 2, bar);
+}
+
+// bf16(relu(y*a + b)) of the first N staged chunks of s, in place: the
+// affine in f32 with __fmul_rn/__fadd_rn (no FMA contraction), so it
+// rounds as the plain version's separate multiply and add, then rounded
+// once. Thread t takes chunks t, t + THREADS, ..., all of them channels
+// 8*(t % CH) .. +7, whose a and b it holds in ac, bc (THREADS % CH == 0).
+template <int THREADS, int N>
+__device__ __forceinline__ void affine_in_place(uint4* s, const float* ac, const float* bc) {
+  for (unsigned e = threadIdx.x; e < N; e += THREADS) {
+    const Chunk q = load_chunk(s + e);
+    Chunk out;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float lo = fmaxf(__fadd_rn(__fmul_rn(channel(q, 2 * i), ac[2 * i]), bc[2 * i]), 0.f);
+      const float hi =
+          fmaxf(__fadd_rn(__fmul_rn(channel(q, 2 * i + 1), ac[2 * i + 1]), bc[2 * i + 1]), 0.f);
+      out.w[i] = pack_bf16(lo, hi);
+    }
+    store_chunk(s + e, out);
+  }
+}
+
+// 0 into the staged elements of an R x Q box outside the image; nothing
+// for a box inside it (the test is the same in every thread)
+template <int THREADS, int CH, int R, int Q>
+__device__ __forceinline__ void zero_outside(uint4* s, int h0, int w0, int H, int W) {
+  if (h0 >= 0 && w0 >= 0 && h0 + R <= H && w0 + Q <= W) return;
+  const int r0 = max(0, -h0);
+  const int r1 = min(R, H - h0);
+  const int c0 = max(0, -w0);
+  const int c1 = min(Q, W - w0);
+  for (int e = threadIdx.x; e < R * Q * CH; e += THREADS) {
+    const int sr = e / (Q * CH);
+    const int sc = e / CH % Q;
+    if (sr < r0 || sr >= r1 || sc < c0 || sc >= c1) store_chunk(s + e, Chunk{{0u, 0u, 0u, 0u}});
+  }
+  __syncthreads();
+}
+
+// ---- forward ----
+
+__device__ __forceinline__ unsigned hmax2(unsigned a, unsigned b) {
+  union {
+    __nv_bfloat162 h;
+    unsigned u;
+  } v;
+  v.h = __hmax2(as_bf162(a), as_bf162(b));
+  return v.u;
+}
+
+// the max of three staged chunks, 8 channels, as bf16x2
+__device__ __forceinline__ uint4 max3(const uint4& a, const uint4& b, const uint4& c) {
+  return make_uint4(hmax2(hmax2(a.x, b.x), c.x), hmax2(hmax2(a.y, b.y), c.y),
+                    hmax2(hmax2(a.z, b.z), c.z), hmax2(hmax2(a.w, b.w), c.w));
+}
+
+// CH = C / 8 chunks of 8 channels per element. Shared memory: two stages
+// of FSR x FSC staged elements, loaded by the TMA one tile ahead.
+template <int CH>
+__global__ void __launch_bounds__(FWD_THREADS, 3) stem_pool_fwd_kernel(
+    const __nv_bfloat16* __restrict__ y, const float* __restrict__ a,
+    const float* __restrict__ b, __nv_bfloat16* __restrict__ out, int N, int H, int W) {
+  constexpr int C = 8 * CH;
+  constexpr int STAGED = FSR * FSC * CH;            // uint4 a stage
+  constexpr int ITEMS = FOH / FRUN * FOW * CH;      // (row run, column, chunk)
+  static_assert(FWD_THREADS % CH == 0, "a thread keeps its chunk of channels");
+  static_assert(FOH % FRUN == 0 && FSR <= 32, "one lane of warp 0 per staged row");
+  extern __shared__ uint4 smem[];
+  __shared__ unsigned long long full[2];
+
+  const int HO = H / 2;
+  const int WO = W / 2;
+  const int TW = (WO + FOW - 1) / FOW;
+  const int tiles_per_image = ((HO + FOH - 1) / FOH) * TW;
+  const long long n_tiles = (long long)N * tiles_per_image;
+  const unsigned ch = threadIdx.x % CH;
+  float ac[8], bc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    ac[k] = a[ch * 8 + k];
+    bc[k] = b[ch * 8 + k];
+  }
+
+  // 1. (warp 0) stage tile t's rows into stage s by the TMA, one row a lane
+  auto stage = [&](long long t, int s) {
+    const Tile tl = tile_of<FOH, FOW>(t, tiles_per_image, TW);
+    const int h0 = 2 * tl.oh0 - 1;
+    const int w0 = 2 * tl.ow0 - 1;
+    if (threadIdx.x == 0) mbar_expect(&full[s], box_bytes(h0, w0, FSR, FSC, H, W, C));
+    __syncwarp();
+    stage_row<CH>(smem + s * STAGED, y, tl.n, h0, w0, FSR, FSC, H, W, threadIdx.x, &full[s]);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) stage(blockIdx.x, 0);  // the grid has at most one block a tile
+
+  int it = 0;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    const int s = it & 1;
+    const Tile tl = tile_of<FOH, FOW>(t, tiles_per_image, TW);
+    const int h0 = 2 * tl.oh0 - 1;  // staged row 0, column 0
+    const int w0 = 2 * tl.ow0 - 1;
+    uint4* st = smem + s * STAGED;
+
+    // everyone is done with the other stage (the last tile), and its
+    // writes are ordered before the TMA's
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x < 32 && t + gridDim.x < n_tiles) stage(t + gridDim.x, s ^ 1);
+    mbar_wait(&full[s], (it >> 1) & 1);
+
+    // 2. relu_affine once per staged element, then 0 in the padding (the
+    // top row and left column of a tile at the image's edge: H, W are
+    // even, so the windows' bottom and right rows are in the image)
+    affine_in_place<FWD_THREADS, STAGED>(st, ac, bc);
+    __syncthreads();
+    zero_outside<FWD_THREADS, CH, FSR, FSC>(st, h0, w0, H, W);
+
+    // 3. window rows i0 .. i0 + FRUN - 1 of column j: the row max of each
+    // of their 2*FRUN + 1 staged rows, then the max of each window's three
+    for (int item = threadIdx.x; item < ITEMS; item += FWD_THREADS) {
+      const int j = item / CH % FOW;
+      const int i0 = item / (CH * FOW) * FRUN;
+      const int oh = tl.oh0 + i0;
+      const int ow = tl.ow0 + j;
+      if (oh >= HO || ow >= WO) continue;
+      const uint4* p = st + (2 * i0 * FSC + 2 * j) * CH + ch;
+      uint4 r[2 * FRUN + 1];
+#pragma unroll
+      for (int q = 0; q < 2 * FRUN + 1; ++q) {
+        r[q] = max3(p[q * FSC * CH], p[(q * FSC + 1) * CH], p[(q * FSC + 2) * CH]);
+      }
+      // 4. 16-byte streaming stores: the output is not read again here
+      uint4* o = reinterpret_cast<uint4*>(out + (((size_t)tl.n * HO + oh) * WO + ow) * C) + ch;
+#pragma unroll
+      for (int u = 0; u < FRUN; ++u) {
+        if (oh + u < HO) __stcs(o + (size_t)u * WO * CH, max3(r[2 * u], r[2 * u + 1], r[2 * u + 2]));
+      }
+    }
+  }
+}
+
+template <int CH>
+int fwd_launch(const void* y, const float* a, const float* b, void* out, int N, int H, int W,
+               cudaStream_t s) {
+  const size_t smem = (size_t)2 * FSR * FSC * CH * sizeof(uint4);
+  cudaError_t err = cudaFuncSetAttribute(
+      stem_pool_fwd_kernel<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stem_pool_fwd_kernel<CH>,
+                                                           FWD_THREADS, smem)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const long long tiles =
+      (long long)N * ((H / 2 + FOH - 1) / FOH) * ((W / 2 + FOW - 1) / FOW);
+  if (tiles < 1 || per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (long long)per_sm * sms;
+  stem_pool_fwd_kernel<CH><<<(unsigned)(blocks < tiles ? blocks : tiles), FWD_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(y), a, b, static_cast<__nv_bfloat16*>(out), N, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- backward ----
+
 // d = sum of g over the windows whose code points at element (lh, lw) of
 // the tile: NI window rows, (lh+1)/2 down to lh/2, by NJ columns likewise,
 // last window first; every load is issued before the sums
@@ -217,17 +421,6 @@ __device__ __forceinline__ void gather(const uint4* s_g, const unsigned* s_code,
       if (((x[v] >> (4 * k)) & 0xfu) == 0u) d[k] += channel(gv[v], k);
     }
   }
-}
-
-// A tile: image n, its first window row and column.
-struct Tile {
-  int n, oh0, ow0;
-};
-
-__device__ __forceinline__ Tile tile_of(long long t, int tiles_per_image, int TW) {
-  const int n = (int)(t / tiles_per_image);
-  const int r = (int)(t - (long long)n * tiles_per_image);
-  return {n, (r / TW) * TOH, (r % TW) * TOW};
 }
 
 // CH = C / 8 chunks of 8 channels per element; BWD_THREADS % CH == 0, so
@@ -273,34 +466,23 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) stem_pool_bwd_kernel(
   constexpr int ROW_STEP = PSTEP / (2 * TOW);
   const int lw = 2 * ((p0 % (2 * TOW)) % TOW) + (p0 % (2 * TOW)) / TOW;
 
-  // 1. (warp 0) stage tile t's rows of y and g into stage s by the TMA,
-  // one row a lane; padding is left as it was
+  // 1. (warp 0) stage tile t's rows of y (lanes 0 .. SR-1) and of the
+  // windows' g (lanes SR ..) into stage s by the TMA; padding is left as it
+  // was
   auto stage = [&](long long t, int s) {
-    const Tile tl = tile_of(t, tiles_per_image, TW);
+    const Tile tl = tile_of<TOH, TOW>(t, tiles_per_image, TW);
     uint4* s_y = smem + s * STAGE;
     uint4* s_g = s_y + STAGED;
     const int h0 = 2 * tl.oh0 - 1;
     const int w0 = 2 * tl.ow0 - 1;
-    const int c0 = max(w0, 0);
-    const int c1 = min(w0 + SC, W);
-    const int gc1 = min(tl.ow0 + WC, WO);
-    const int rows = min(h0 + SR, H) - max(h0, 0);
-    const int grows = min(tl.oh0 + WR, HO) - tl.oh0;
-    const unsigned lane = threadIdx.x;
+    const int lane = threadIdx.x;
     if (lane == 0) {
-      mbar_expect(&full[s], (unsigned)(rows * (c1 - c0) + grows * (gc1 - tl.ow0)) * C * 2);
+      mbar_expect(&full[s], box_bytes(h0, w0, SR, SC, H, W, C) +
+                                box_bytes(tl.oh0, tl.ow0, WR, WC, HO, WO, C));
     }
     __syncwarp();
-    const int h = h0 + (int)lane;
-    if (lane < SR && h >= 0 && h < H) {
-      bulk_load(s_y + (lane * SC + c0 - w0) * CH, y + (((size_t)tl.n * H + h) * W + c0) * C,
-                (unsigned)(c1 - c0) * C * 2, &full[s]);
-    }
-    if (lane >= SR && lane < SR + grows) {
-      const int i = lane - SR;
-      bulk_load(s_g + i * WC * CH, g + (((size_t)tl.n * HO + tl.oh0 + i) * WO + tl.ow0) * C,
-                (unsigned)(gc1 - tl.ow0) * C * 2, &full[s]);
-    }
+    stage_row<CH>(s_y, y, tl.n, h0, w0, SR, SC, H, W, lane, &full[s]);
+    stage_row<CH>(s_g, g, tl.n, tl.oh0, tl.ow0, WR, WC, HO, WO, lane - SR, &full[s]);
   };
 
   if (threadIdx.x == 0) {
@@ -314,7 +496,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) stem_pool_bwd_kernel(
   int it = 0;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
     const int s = it & 1;
-    const Tile tl = tile_of(t, tiles_per_image, TW);
+    const Tile tl = tile_of<TOH, TOW>(t, tiles_per_image, TW);
     const int h0 = 2 * tl.oh0 - 1;  // staged row 0, column 0
     const int w0 = 2 * tl.ow0 - 1;
     uint4* s_yh = smem + s * STAGE;
@@ -327,35 +509,12 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) stem_pool_bwd_kernel(
     if (threadIdx.x < 32 && t + gridDim.x < n_tiles) stage(t + gridDim.x, s ^ 1);
     mbar_wait(&full[s], (it >> 1) & 1);
 
-    // 2. relu_affine once per staged element, in place; elements in the
-    // padding get 0 below
-    for (unsigned e = threadIdx.x; e < STAGED; e += BWD_THREADS) {
-      const Chunk q = load_chunk(s_yh + e);
-      Chunk out;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float lo = fmaxf(__fadd_rn(__fmul_rn(channel(q, 2 * i), ac[2 * i]), bc[2 * i]), 0.f);
-        const float hi =
-            fmaxf(__fadd_rn(__fmul_rn(channel(q, 2 * i + 1), ac[2 * i + 1]), bc[2 * i + 1]), 0.f);
-        out.w[i] = pack_bf16(lo, hi);
-      }
-      store_chunk(s_yh + e, out);
-    }
+    // 2. relu_affine once per staged element, in place; then 0 in the
+    // staged rows and columns in the padding, which never takes the max
+    // from an element that could take a gradient
+    affine_in_place<BWD_THREADS, STAGED>(s_yh, ac, bc);
     __syncthreads();
-    if (h0 < 0 || w0 < 0 || h0 + SR > H || w0 + SC > W) {
-      // staged rows and columns in the padding: 0, which never takes the
-      // max from an element that could take a gradient
-      const int r0 = max(0, -h0);
-      const int r1 = min(SR, H - h0);
-      const int c0 = max(0, -w0);
-      const int c1 = min(SC, W - w0);
-      for (int e = threadIdx.x; e < SR * SC * CH; e += BWD_THREADS) {
-        const int sr = e / (SC * CH);
-        const int sc = e / CH % SC;
-        if (sr < r0 || sr >= r1 || sc < c0 || sc >= c1) store_chunk(s_yh + e, Chunk{{0u, 0u, 0u, 0u}});
-      }
-      __syncthreads();
-    }
+    zero_outside<BWD_THREADS, CH, SR, SC>(s_yh, h0, w0, H, W);
 
     // 3. first row-major argmax of each window, 4 bits a channel, in one
     // pass of bf16x2 compares: u counts the positions since the best one,
@@ -541,16 +700,20 @@ int bwd_launch(const void* y, const float* a, const float* b, const void* g, voi
 
 }  // namespace
 
-// y (N, H, W, C) bf16; a, b (C,) f32; out (N, H/2, W/2, C) bf16.
+// y (N, H, W, C) bf16, N, H, W > 0, H and W even, C one of 8, 16, 32,
+// 64, 128; a, b (C,) f32; out (N, H/2, W/2, C) bf16.
 extern "C" int avid_stem_pool_fwd(const void* y, const float* a, const float* b,
                                   void* out, int N, int H, int W, int C,
                                   void* stream) {
-  const long long total = (long long)N * (H / 2) * (W / 2) * C;
-  const unsigned blocks = (unsigned)((total + FWD_THREADS - 1) / FWD_THREADS);
-  stem_pool_fwd_kernel<<<blocks, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(y), a, b,
-      static_cast<__nv_bfloat16*>(out), N, H, W, C);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 8: return fwd_launch<1>(y, a, b, out, N, H, W, s);
+    case 16: return fwd_launch<2>(y, a, b, out, N, H, W, s);
+    case 32: return fwd_launch<4>(y, a, b, out, N, H, W, s);
+    case 64: return fwd_launch<8>(y, a, b, out, N, H, W, s);
+    case 128: return fwd_launch<16>(y, a, b, out, N, H, W, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Rows of the da_part / db_part scratch that avid_stem_pool_bwd needs for

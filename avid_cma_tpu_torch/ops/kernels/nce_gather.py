@@ -3,7 +3,11 @@
 Replaces ``_kernel`` / ``_pallas_scores``
 (avid_cma_tpu/ops/pallas/nce_gather.py:50-85,113). Bound by bytes on this
 card: the B*K scattered 512-byte bank rows, which the kernel reads once
-and never writes out as a gathered tensor.
+and never writes out as a gathered tensor. Its rows are cold in L2 on the
+main path (fresh negatives every step from a bank larger than L2), and a
+random-row gather runs at about its bytes in flight over the memory
+latency: a warp per score, few enough registers that each SM holds its
+full 64 warps (``csrc/nce_gather.cu``).
 
 ``gather_scores`` is the autograd op the criterion calls. Only the query
 carries a gradient; the backward is plain PyTorch (``index_select`` +
@@ -42,6 +46,8 @@ def scores(bank: torch.Tensor, idx: torch.Tensor, query: torch.Tensor,
     _lib.require(q, "query", torch.float32, (bsz, d))
     if d % 4 or bank.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("bank and query rows must be float4-aligned (D % 4 == 0)")
+    if bsz * k >= 2**31 - 64:  # the kernel counts scores in 32 bits
+        raise ValueError(f"idx: {bsz * k} scores in one call, more than the kernel takes")
     out = torch.empty((bsz, k), dtype=torch.float32, device=bank.device)
     err = _lib.lib().avid_nce_scores(
         bank.data_ptr(), idx.data_ptr(), q.data_ptr(), out.data_ptr(),

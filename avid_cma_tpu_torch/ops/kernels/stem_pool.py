@@ -29,6 +29,10 @@ import torch.nn.functional as F
 
 from avid_cma_tpu_torch.ops.kernels import _lib
 
+# channel counts both kernels take (C / 8 chunks of 16 bytes per element)
+KERNEL_CHANNELS = (8, 16, 32, 64, 128)
+
+
 def _relu_affine(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """relu(y*a + b) in f32, rounded once to y.dtype."""
     return torch.relu(y.float() * a + b).to(y.dtype)
@@ -87,12 +91,20 @@ def _check_shapes(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> Tuple[in
     return n, h, w, c
 
 
+def _require_kernel_shape(direction: str, n: int, h: int, w: int, c: int) -> None:
+    if n * h * w == 0 or c not in KERNEL_CHANNELS:
+        raise ValueError(f"the {direction} kernel takes no (N, H, W, C) = {(n, h, w, c)}: "
+                         f"it needs N, H, W > 0 and C in {', '.join(map(str, KERNEL_CHANNELS))}")
+
+
 def stem_pool_fwd(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Forward (N, H, W, C) -> (N, H/2, W/2, C): kernel K2 for a CUDA
-    tensor (bf16, contiguous), the plain version for a CPU tensor."""
+    tensor (bf16, contiguous, C in ``KERNEL_CHANNELS``), the plain version
+    for a CPU tensor."""
     if y.device.type == "cpu":
         return plain_fwd(y, a, b)
     n, h, w, c = _check_shapes(y, a, b)
+    _require_kernel_shape("forward", n, h, w, c)
     out = torch.empty((n, h // 2, w // 2, c), dtype=y.dtype, device=y.device)
     err = _lib.lib().avid_stem_pool_fwd(
         y.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c,
@@ -109,12 +121,12 @@ def stem_pool_bwd(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return plain_bwd(y, a, b, g)
     n, h, w, c = _check_shapes(y, a, b)
     _lib.require(g, "g", torch.bfloat16, (n, h // 2, w // 2, c))
+    _require_kernel_shape("backward", n, h, w, c)
     kernels = _lib.lib()
     # the kernel's persistent grid, one partial row of da and db per block
     parts = kernels.avid_stem_pool_bwd_parts(n, h, w, c)
     if parts < 1:
-        raise ValueError(f"the backward kernel takes no (N, H, W, C) = {(n, h, w, c)}: "
-                         "it needs N, H, W > 0 and C in 8, 16, 32, 64, 128")
+        raise RuntimeError(f"avid_stem_pool_bwd_parts found no launch for {(n, h, w, c)}")
     dy = torch.empty_like(y)
     scratch = torch.empty((2, parts, c), dtype=torch.float32, device=y.device)
     sums = torch.empty((2, c), dtype=torch.float32, device=y.device)

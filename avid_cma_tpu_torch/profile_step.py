@@ -8,8 +8,10 @@ warms it up, then
      forward, criterion, backward, optimizer), running the same calls the
      fused step makes;
   2. traces ``--steps`` fused steps with torch.profiler and reports the
-     device's busy and idle share of the wall time, and the kernels with
-     the most device time (the port's own kernels K1-K4 by name).
+     device's busy and idle share of the wall time, the kernels with the
+     most device time (the port's own kernels K1-K4 by name), and each
+     launch of the port's own kernels apart (K4's K = 1024 and K = 1
+     calls, K1's and K3's two passes).
 Prints one JSON object; ``--out`` also writes it to a file. Needs a card.
 """
 
@@ -88,12 +90,15 @@ def trace(state, fused, raw, steps: int, top: int) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     per_name = collections.Counter()
     intervals = []
+    launches = collections.defaultdict(list)  # port kernel -> each launch's ms
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         start, end = e.time_range.start, e.time_range.end
         per_name[e.name] += end - start
         intervals.append((start, end))
+        if _own(e.name):
+            launches[_own(e.name)].append((end - start) / 1e3)
     busy = 0.0
     cur_s = cur_e = None
     for s, e in sorted(intervals):  # union of kernel intervals
@@ -116,6 +121,7 @@ def trace(state, fused, raw, steps: int, top: int) -> dict:
             "device_busy_ms_per_step": busy / steps / 1e3,
             "idle_share": 1.0 - busy / wall_us if intervals else None,
             "device_events": len(intervals), "own_kernels_ms_per_step": dict(own),
+            "own_kernel_launches_ms": {k: sorted(v) for k, v in launches.items()},
             "top_kernels": kernels}
 
 

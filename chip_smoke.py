@@ -8,9 +8,14 @@
    gather, K5 fused (2+1)D conv pair) against its plain PyTorch version on
    the card at the shapes of the Kinetics slices (K5 at the four R2Plus1D-18
    stage shapes), and times kernel and plain version with CUDA events
-   (K1's and K3's two launches apart with torch.profiler; beside K1,
-   cuBLAS's f32 product of its DFT's shape as a reference; K3's da/db
-   must be the same bits on two calls);
+   (K1's, K2's and K3's launches also apart, as device intervals in a
+   torch.profiler trace; beside K1, cuBLAS's f32 product of its DFT's
+   shape as a reference; K3's da/db must be the same bits on two calls).
+   K4 is timed as its device interval with cold bank rows: a ring of
+   NCE_RING index draws, more rows than L2 holds, cycled across
+   launches; its CUDA-event time on one warm draw, the wrapper's host
+   cost per call, and ``index_select`` of the same cold rows (a reference
+   only) are printed beside it;
 3. runs one train step, and one eval-mode forward, at a small size on the
    card and on the CPU from the same weights and inputs and compares loss,
    Z and bank rows, and the embeddings;
@@ -35,6 +40,7 @@ script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -83,6 +89,9 @@ RAW_HW = (256, 320)
 # the eval slice's raw frames: a common Kinetics source size, so the eval
 # short-side resize (240 -> 256) really resizes
 EVAL_RAW_HW = (240, 320)
+# K4's cold-row ring: 8 draws of 32 x 1024 rows of 512 bytes (134 MB) cycle
+# through the 50 MB L2, as fresh negatives do on the main path
+NCE_RING = 8
 # the stride-1 (2+1)D pairs of R2Plus1D-18 at 8 x 224^2, 32 clips: (B, T, H, W, C)
 PAIR_SHAPES = {"conv2x": (32, 8, 56, 56, 64), "conv3x": (32, 4, 28, 28, 128),
                "conv4x": (32, 2, 14, 14, 256), "conv5x": (32, 1, 7, 7, 512)}
@@ -161,17 +170,25 @@ def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS) -> tuple:
 
 def report(results: dict, key: str, case: str, abs_err: float, err: float, tol: float,
            kernel_fn, plain_fn, nbytes: float, flops: float, iters: int = 20,
-           peak_flops: float = F32_FLOPS) -> None:
+           peak_flops: float = F32_FLOPS, device_ms: float = None, extra: dict = None) -> None:
     """Time kernel and plain version, print the check's JSON line, raise if
     ``err`` exceeds ``tol``; keep the first case's times and the largest
-    absolute error over the cases for the kernels line."""
+    absolute error over the cases for the kernels line. The kernel's time
+    is its CUDA-event time over ``iters`` calls of ``kernel_fn``, unless
+    ``device_ms`` gives another reading (the event time is then printed
+    as ``event_ms``)."""
     ms = time_ms(kernel_fn, iters)
+    line = {}
+    if device_ms is not None:
+        line["event_ms"] = ms
+        ms = device_ms
     plain = time_ms(plain_fn, max(3, iters // 4))
     b_ms, b_by = bound(nbytes, flops, peak_flops)
     name = KERNELS[key]["name"]
     print(json.dumps({"name": name, "case": case, "max_err": err, "tol": tol,
-                      "max_abs_err": abs_err, "kernel_ms": ms, "plain_ms": plain,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}), flush=True)
+                      "max_abs_err": abs_err, "kernel_ms": ms, **line, "plain_ms": plain,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                      **(extra or {})}), flush=True)
     require(err <= tol, f"{name} ({case}): error {err} > {tol}")
     r = results.setdefault(key, {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                                  "bound_by": b_by, "max_abs_err": 0.0})
@@ -239,10 +256,12 @@ def check_stem_pool(results: dict) -> None:
         out = stem_pool.stem_pool_fwd(y, a, b)
         ref = stem_pool.plain_fwd(y, a, b)
         err = float((out.float() - ref.float()).abs().max())
+        split = launch_split_ms(lambda: stem_pool.stem_pool_fwd(y, a, b),
+                                ("stem_pool_fwd_kernel",))
         report(results, "stem_pool_fwd", case, err, err, 0.0,
                lambda: stem_pool.stem_pool_fwd(y, a, b),
                lambda: stem_pool.plain_fwd(y, a, b),
-               n_in * 2 + n_out * 2 + 2 * c * 4, 0.0)
+               n_in * 2 + n_out * 2 + 2 * c * 4, 0.0, extra={"launch_ms": split})
 
         dy, da, db = stem_pool.stem_pool_bwd(y, a, b, g)
         _, da2, db2 = stem_pool.stem_pool_bwd(y, a, b, g)
@@ -268,6 +287,15 @@ def check_stem_pool(results: dict) -> None:
 
 
 def check_nce_gather(results: dict) -> None:
+    """K4 at K = 1024 (negatives) and K = 1 (the positive). Its time is its
+    device interval over a ring of NCE_RING index draws cycled across
+    launches, so the rows are cold in L2 as on the main path (fresh
+    negatives every step, from a 119 MB bank); the bound counts the unique
+    rows of a draw, averaged over the ring. Printed beside it: the
+    CUDA-event time of the wrapper on one draw (its rows warm in L2), the
+    wrapper's host cost per call (host clock over calls that do not wait
+    for the card), and ``ref_gather_ms``, ``index_select`` of the same cold
+    rows: a reachability reference, never called by the port."""
     rng = np.random.default_rng(2)
     n, d, bsz = BANK_ROWS, 128, AUDIO_SHAPE[0]
     bank = torch.nn.functional.normalize(
@@ -275,18 +303,44 @@ def check_nce_gather(results: dict) -> None:
     q = torch.nn.functional.normalize(
         torch.from_numpy(rng.standard_normal((bsz, d), dtype=np.float32)).cuda(), dim=1)
     for k in (1024, 1):
-        idx = torch.from_numpy(rng.integers(0, n, (bsz, k))).cuda()
-        got = nce_gather.scores(bank, idx, q, 0.07)
-        ref = nce_gather.plain_scores(bank, idx, q, 0.07)
-        abs_err = float((got - ref).abs().max())
-        rel = abs_err / float(ref.abs().max())
-        rows = int(torch.unique(idx).numel())
-        nbytes = rows * d * 4 + idx.numel() * 8 + q.numel() * 4 + got.numel() * 4
+        ring = [torch.from_numpy(rng.integers(0, n, (bsz, k))).cuda() for _ in range(NCE_RING)]
+        abs_err = rel = 0.0
+        for idx in ring:
+            got = nce_gather.scores(bank, idx, q, 0.07)
+            ref = nce_gather.plain_scores(bank, idx, q, 0.07)
+            e = float((got - ref).abs().max())
+            abs_err, rel = max(abs_err, e), max(rel, e / float(ref.abs().max()))
+        def cold(fn):
+            draws = itertools.cycle(ring)
+            return lambda: fn(next(draws))
+
+        iters = 4 * NCE_RING
+        dev_ms = launch_split_ms(cold(lambda i: nce_gather.scores(bank, i, q, 0.07)),
+                                 ("nce_scores_kernel",), iters)["nce_scores_kernel"]
+        # every device interval of the call (one gather kernel)
+        gather_ms = launch_split_ms(cold(lambda i: bank.index_select(0, i.flatten())),
+                                    ("",), iters)[""]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            nce_gather.scores(bank, ring[0], q, 0.07)
+        host_us = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+        rows = sum(int(torch.unique(i).numel()) for i in ring) / NCE_RING
+        nbytes = rows * d * 4 + bsz * k * 8 + q.numel() * 4 + bsz * k * 4
+        idx = ring[0]
         # max_err: relative to the largest score
         report(results, "nce_gather", f"K={k}", abs_err, rel, 1.3e-5,
                lambda: nce_gather.scores(bank, idx, q, 0.07),
                lambda: nce_gather.plain_scores(bank, idx, q, 0.07),
-               nbytes, 2.0 * bsz * k * d)
+               nbytes, 2.0 * bsz * k * d, device_ms=dev_ms,
+               extra={"kernel_ms_is": f"device interval, cold rows (ring of {NCE_RING})",
+                      "event_ms_is": "CUDA events around the wrapper, one draw (warm rows)",
+                      "wrapper_host_us": host_us, "unique_rows": rows})
+        print(json.dumps({"name": KERNELS["nce_gather"]["name"], "case": f"K={k}",
+                          "ref_gather_ms": gather_ms,
+                          "ref_gather_call": "bank.index_select(0, idx.flatten()), cold rows"}),
+              flush=True)
 
 
 def _taps(n: int) -> int:

@@ -121,19 +121,38 @@ def _check_stem_bwd(y, a, b, g):
     return da, db
 
 
-# K3 walks tiles of 7 x 8 windows (14 x 16 elements): shapes where the
-# tiles do not divide H, W (9 x 17 windows) or fill a grid, one image of
-# one window, and every channel count the kernel takes
+# K3 walks tiles of 7 x 8 windows (14 x 16 elements), K2 tiles of 8 x 8
+# (16 x 16): shapes where the tiles do not divide H, W (9 x 17 windows,
+# 10 x 22) or fill a grid, exactly one K2 tile, one image of one window,
+# every channel count the kernels take, and 16 Kinetics-sized images, so
+# that each persistent block walks several tiles
 @pytest.mark.parametrize("shape", [
     (2, 6, 10, 64), (3, 8, 4, 8), (1, 2, 2, 64), (3, 18, 34, 64), (2, 18, 34, 8),
-    (1, 34, 20, 16), (1, 20, 18, 32), (1, 18, 18, 128),
-], ids=["c64", "c8", "n1-2x2", "ragged-c64", "ragged-c8", "c16", "c32", "c128"])
+    (1, 34, 20, 16), (1, 20, 18, 32), (1, 18, 18, 128), (1, 16, 16, 64), (2, 20, 44, 64),
+    (16, 112, 112, 64),
+], ids=["c64", "c8", "n1-2x2", "ragged-c64", "ragged-c8", "c16", "c32", "c128",
+        "one-fwd-tile", "ragged-fwd-tiles", "kinetics-16"])
 @pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
 def test_stem_pool_kernels_match_plain(dev, shape, ties):
     y, a, b, g = _stem_inputs(dev, shape, ties)
     out = stem_pool.stem_pool_fwd(y, a, b)
     assert torch.equal(out, stem_pool.plain_fwd(y, a, b))
+    assert torch.equal(out, stem_pool.stem_pool_fwd(y, a, b))  # the same bits again
     _check_stem_bwd(y, a, b, g)
+
+
+@pytest.mark.parametrize("edge", [15, 16, 17], ids=["halo-row", "tile-start", "tile-centre"])
+def test_stem_pool_fwd_tile_edge_in_halo(dev, edge):
+    """K2 stages a tile's 16 x 16 elements and the row and column before
+    them: element row and column 15 end windows 7 and begin windows 8, so
+    they are in one tile's windows and the next tile's halo; a unique
+    largest value there (and at rows 16, 17 beside it) must reach both."""
+    y, a, b, _ = _stem_inputs(dev, (2, 34, 50, 64), False, seed=12)
+    a, b = a.abs() + 0.5, torch.zeros_like(b)
+    y[:, edge, :, :] = 8.0
+    y[:, :, edge, :] = 9.0
+    out = stem_pool.stem_pool_fwd(y, a, b)
+    assert torch.equal(out, stem_pool.plain_fwd(y, a, b))
 
 
 def test_stem_pool_bwd_tile_edge_windows(dev):
@@ -173,6 +192,13 @@ def test_stem_pool_bwd_rejects_channel_counts_it_cannot_take(dev, c):
         stem_pool.stem_pool_bwd(y, a, b, g)
 
 
+@pytest.mark.parametrize("c", [24, 256])
+def test_stem_pool_fwd_rejects_channel_counts_it_cannot_take(dev, c):
+    y, a, b, _ = _stem_inputs(dev, (1, 4, 4, c), False)
+    with pytest.raises(ValueError, match="C in 8"):
+        stem_pool.stem_pool_fwd(y, a, b)
+
+
 def test_scale_relu_pool_autograd_on_card(dev):
     rng = np.random.default_rng(2)
     y = torch.from_numpy(rng.standard_normal((2, 3, 8, 8, 64), dtype=np.float32)
@@ -187,14 +213,22 @@ def test_scale_relu_pool_autograd_on_card(dev):
     assert y.grad.dtype == torch.bfloat16 and a.grad.shape == (64,)
 
 
-@pytest.mark.parametrize("d", [128, 64])
-def test_nce_scores_match_plain(dev, d):
+# K4 scores one (b, k) a warp, four a block: K = 1 (the positive), B = 1,
+# K not a multiple of the block's four (blocks that span query rows) or
+# past a warp's 32, D = 64 (half the lanes idle) and 256 (two float4 a
+# lane), and a repeated row in every case
+@pytest.mark.parametrize("bk", [(5, 7), (3, 1), (1, 1), (1, 33), (4, 64), (2, 1030)],
+                         ids=["k7", "k1", "b1-k1", "b1-k33", "k64", "k1030"])
+@pytest.mark.parametrize("d", [128, 64, 256])
+def test_nce_scores_match_plain(dev, d, bk):
     rng = np.random.default_rng(3)
     bank = torch.nn.functional.normalize(
         torch.from_numpy(rng.standard_normal((1000, d), dtype=np.float32)).to(dev), dim=1)
-    q = torch.from_numpy(rng.standard_normal((5, d), dtype=np.float32)).to(dev)
-    idx = torch.from_numpy(rng.integers(0, 1000, (5, 7))).to(dev)
+    q = torch.from_numpy(rng.standard_normal((bk[0], d), dtype=np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 1000, bk)).to(dev)
+    idx[-1, -1] = idx[0, 0]
     got = nce_gather.scores(bank, idx, q, 0.07)
+    assert got.shape == bk
     ref = nce_gather.plain_scores(bank, idx, q, 0.07)
     assert float((got - ref).abs().max() / ref.abs().max()) < 1.3e-5
     qg = q.clone().requires_grad_()
@@ -210,6 +244,25 @@ def test_nce_out_of_range_index_scores_nan(dev):
     got = nce_gather.scores(bank, torch.tensor([[0, 10, -1]], device=dev), q, 1.0)
     assert float(got[0, 0]) == 128.0
     assert bool(torch.isnan(got[0, 1:]).all())
+
+
+@pytest.mark.parametrize("bk", [(2, 32), (3, 5)], ids=["one-query-blocks", "mixed-blocks"])
+def test_nce_out_of_range_indices_inside_blocks(dev, bk):
+    """An index past either end (or far past it) scores NaN in a block of
+    one query row and in a block that spans several; the other scores
+    there are untouched."""
+    rng = np.random.default_rng(13)
+    bank = torch.from_numpy(rng.standard_normal((50, 128), dtype=np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((bk[0], 128), dtype=np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 50, bk)).to(dev)
+    bad = torch.zeros(bk, dtype=torch.bool, device=dev)
+    for (i, j), v in zip([(0, 1), (-1, -1), (1, 0)], [50, -7, 1 << 40]):
+        idx[i, j] = v
+        bad[i, j] = True
+    got = nce_gather.scores(bank, idx, q, 0.07)
+    ref = nce_gather.plain_scores(bank, torch.where(bad, 0, idx), q, 0.07)
+    assert bool(torch.isnan(got[bad]).all())
+    assert float((got[~bad] - ref[~bad]).abs().max() / ref.abs().max()) < 1.3e-5
 
 
 def test_wrappers_reject_bad_inputs(dev):

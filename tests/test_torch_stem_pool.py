@@ -83,3 +83,25 @@ def test_bf16_rounds_affine_once():
         pre.to(torch.bfloat16).float().reshape(4, 8, 8, 8).permute(0, 3, 1, 2),
         3, 2, 1).permute(0, 2, 3, 1).reshape(out.shape)
     torch.testing.assert_close(out.float(), ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tie-heavy"])
+def test_zero_padding_and_separable_max_are_exact(ties):
+    """The forward kernel's arithmetic in torch: relu_affine once per
+    element, padding as 0 instead of -inf (every window holds its
+    in-bounds centre and relu >= 0), a 3-wide row max at each window
+    column, then a 3-high max over those. Bit for bit the plain version,
+    with negative scales and all-negative windows included."""
+    y, a, b, _ = _inputs(3, (3, 18, 22, 16), ties)
+    if not ties:
+        a[:4] = -np.abs(a[:4])  # windows whose max comes from their smallest y
+        y[:, :6, :6, :] = -np.abs(y[:, :6, :6, :]) - 1.0  # relu 0 in a corner
+    ty = torch.from_numpy(y).to(torch.bfloat16)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    n, h, w, c = ty.shape
+    yh = torch.relu(ty.float() * ta + tb).to(torch.bfloat16)
+    pad = torch.nn.functional.pad(yh, (0, 0, 1, 0, 1, 0))  # top row, left column: 0
+    rows = torch.maximum(torch.maximum(pad[:, :, 0:w:2], pad[:, :, 1:w + 1:2]),
+                         pad[:, :, 2:w + 2:2])
+    out = torch.maximum(torch.maximum(rows[:, 0:h:2], rows[:, 1:h + 1:2]), rows[:, 2:h + 2:2])
+    assert torch.equal(out, port.stem_pool_fwd(ty, ta, tb))
