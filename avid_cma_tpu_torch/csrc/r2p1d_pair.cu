@@ -1,5 +1,6 @@
-// K5: fused (2+1)D conv pair, forward only, for Hopper (sm_90a), on
-// channels-last bf16 or f32.
+// K5 in f32: fused (2+1)D conv pair, forward only, for Hopper (sm_90a), on
+// channels-last f32. (bf16, the card's model dtype, is r2p1d_pair_mma.cu,
+// on the tensor cores; TF32 tensor cores would miss f32's 1e-5 gate.)
 //
 // Replaces the Pallas TPU kernel r2p1d_pair_pallas / _pair_kernel
 // (avid_cma_tpu/ops/pallas/r2p1d_block.py:84, body at :32-80).
@@ -17,7 +18,7 @@
 // memory-bound. What the design does about it: one block owns a tile of P
 // pixels of one clip across ALL T frames, so the temporal conv needs no
 // spatial halo and the whole (T, C, P) intermediate stays in shared memory
-// (T*C = 512 in every R2Plus1D-18 stage at 8 frames: 64 KB in bf16 at
+// (T*C = 512 in every R2Plus1D-18 stage at 8 frames: 128 KB in f32 at
 // P = 64). The intermediate never reaches device memory, the only traffic
 // beyond the bound's is the 3x3 input halo re-read through L1/L2, and
 // every byte of x and out moves once. Both convs are register-tiled
@@ -32,7 +33,6 @@
 // kernel bound by f32 FMA issue, 67 TFLOP/s at best, against the bf16
 // tensor-core bound; wgmma and TMA are later work.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -43,16 +43,11 @@ constexpr int MAX_SMEM = 232448;     // per block on sm_90
 constexpr int MIN_BLOCKS_PER_SM = 2;  // narrow the pixel tile until the grid fills this
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // 16 bytes of T from global memory (16-byte aligned) as floats
 template <typename T>
@@ -254,7 +249,7 @@ using Launcher = cudaError_t (*)(const void*, const void*, const void*, const fl
 // Tile shapes, in order of preference. The MP = 4 shapes (64, 32, 16
 // pixels by 64, 128, 256 channels) keep 16 FMAs per two shared loads; the
 // MP = 2 shape (32 pixels by 64 channels) serves only an intermediate too
-// large for them: conv2x of a 32-frame clip (the 2 s eval clips) at C = 64.
+// large for them: clips of 14 to 26 frames at C = 64.
 constexpr int N_WIDE = 3;
 constexpr Tile TILES[] = {{4, 16}, {4, 32}, {4, 64}, {2, 16}};
 
@@ -299,16 +294,14 @@ cudaError_t dispatch(const void* x, const void* ws, const void* wt, const float*
 }  // namespace
 
 // x, out (B, T, H, W, C); w_spatial (1, 3, 3, C, C); w_temporal (3, 1, 1, C, C);
-// all bf16 when is_bf16, else f32, contiguous and 16-byte aligned;
-// scale, bias (C,) f32; C a multiple of 64. Returns cudaErrorInvalidValue
-// when no tile shape's T*C intermediate fits in shared memory.
-extern "C" int avid_r2p1d_pair(const void* x, const void* w_spatial, const void* w_temporal,
-                               const float* scale, const float* bias, void* out, int B,
-                               int T, int H, int W, int C, int is_bf16, void* stream) {
+// all f32, contiguous and 16-byte aligned; scale, bias (C,) f32; C a
+// multiple of 64. Returns cudaErrorInvalidValue when no tile shape's T*C
+// intermediate fits in shared memory.
+extern "C" int avid_r2p1d_pair_f32(const void* x, const void* w_spatial,
+                                   const void* w_temporal, const float* scale,
+                                   const float* bias, void* out, int B, int T, int H, int W,
+                                   int C, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(x, w_spatial, w_temporal, scale, bias, out, B, T,
-                                        H, W, C, s)
-              : dispatch<float>(x, w_spatial, w_temporal, scale, bias, out, B, T, H, W, C, s);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      dispatch<float>(x, w_spatial, w_temporal, scale, bias, out, B, T, H, W, C, s));
 }

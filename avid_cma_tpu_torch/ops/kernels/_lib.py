@@ -30,7 +30,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("spectrogram.cu", "stem_pool.cu", "nce_gather.cu", "r2p1d_pair.cu")
+SOURCES = ("spectrogram.cu", "stem_pool.cu", "nce_gather.cu", "r2p1d_pair.cu",
+           "r2p1d_pair_mma.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -58,8 +59,11 @@ _SIGNATURES = {
     "avid_stem_pool_bwd": [_VP] * 9 + [_I] * 5 + [_VP],
     # bank, idx, q, out, B, K, N, D, temperature, stream
     "avid_nce_scores": [_VP] * 4 + [_I] * 4 + [_F, _VP],
-    # x, w_spatial, w_temporal, scale, bias, out, B, T, H, W, C, is_bf16, stream
-    "avid_r2p1d_pair": [_VP] * 6 + [_I] * 6 + [_VP],
+    # x, w_spatial, w_temporal, scale, bias, out, B, T, H, W, C, stream (f32)
+    "avid_r2p1d_pair_f32": [_VP] * 6 + [_I] * 5 + [_VP],
+    # x, w_spatial, w_temporal, scale, bias, out, B, T, H, W, C, tile_h,
+    # frames, smem_bytes, stream (bf16; the plan of r2p1d_pair.plan_bf16)
+    "avid_r2p1d_pair_bf16": [_VP] * 6 + [_I] * 8 + [_VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

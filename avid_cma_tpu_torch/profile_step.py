@@ -1,6 +1,6 @@
-"""Where the time of one AVID pretraining step goes, on the card.
+"""Where the time of one AVID pretraining step (or eval step) goes, on the card.
 
-    python -m avid_cma_tpu_torch.profile_step [--steps 3] [--top 25] [--out FILE]
+    python -m avid_cma_tpu_torch.profile_step [--steps 3] [--top 25] [--out FILE] [--eval]
 
 Builds the Kinetics Cross-N1024 slice at full width (as chip_smoke.py),
 warms it up, then
@@ -11,8 +11,11 @@ warms it up, then
      device's busy and idle share of the wall time, the kernels with the
      most device time (the port's own kernels K1-K4 by name), and each
      launch of the port's own kernels apart (K4's K = 1024 and K = 1
-     calls, K1's and K3's two passes).
-Prints one JSON object; ``--out`` also writes it to a file. Needs a card.
+     calls, K1's and K3's two passes, K5's 13 launches a forward).
+With ``--eval``, the forward-only slice instead (``build_eval``, raw
+240 x 320 frames as chip_smoke.py's eval slice): only the trace (2), of
+fused eval steps. Prints one JSON object; ``--out`` also writes it to a
+file. Needs a card.
 """
 
 from __future__ import annotations
@@ -28,23 +31,23 @@ import torch
 
 from avid_cma_tpu_torch.criterions.avid import avid_forward
 from avid_cma_tpu_torch.data.pipelines import preprocess_batch
-from avid_cma_tpu_torch.train.builders import build_pretrain, kinetics_cross_n1024
+from avid_cma_tpu_torch.train.builders import build_eval, build_pretrain, kinetics_cross_n1024
 
 OWN_KERNELS = {"stft_power_kernel": "K1", "db_clamp_norm_kernel": "K1",
                "stem_pool_fwd_kernel": "K2", "stem_pool_bwd_kernel": "K3",
                "stem_pool_bwd_sum_kernel": "K3",
-               "nce_scores_kernel": "K4"}
+               "nce_scores_kernel": "K4", "r2p1d_pair": "K5"}
 
 
 def _own(name: str):
     return next((k for key, k in OWN_KERNELS.items() if key in name), None)
 
 
-def _raw_batch(cfg, rng):
+def _raw_batch(cfg, rng, hw=(256, 320)):
     b = cfg.batch_size
     return {
         "frames": torch.from_numpy(rng.integers(
-            0, 255, (b, cfg.num_frames, 256, 320, 3), dtype=np.uint8)).cuda(),
+            0, 255, (b, cfg.num_frames, *hw, 3), dtype=np.uint8)).cuda(),
         "audio": torch.from_numpy(rng.standard_normal(
             (b, int(cfg.audio_clip_duration * cfg.audio_fps)), dtype=np.float32)).cuda(),
         "index": torch.from_numpy(rng.choice(cfg.num_data, b, replace=False)).cuda(),
@@ -130,19 +133,28 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--eval", action="store_true", help="profile the fused eval step")
     args = ap.parse_args()
     cfg = kinetics_cross_n1024()
-    state, fused = build_pretrain(cfg, device="cuda")
-    raw = _raw_batch(cfg, np.random.default_rng(0))
+    if args.eval:
+        state, fused, _ = build_eval(cfg, device="cuda")
+        raw = _raw_batch(cfg, np.random.default_rng(0), hw=(240, 320))
+    else:
+        state, fused = build_pretrain(cfg, device="cuda")
+        raw = _raw_batch(cfg, np.random.default_rng(0))
     for i in range(2):
         fused(state, raw, i)
     torch.cuda.synchronize()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    out = {"card": smi, "config": "Cross-N1024 R2Plus1D-18+Conv2D-10 b32 8x224^2",
-           "phase_ms": phase_times(state, cfg, raw, args.steps),
-           **trace(state, fused, raw, args.steps, args.top)}
+    if args.eval:
+        out = {"card": smi, "config": "Cross-N1024 eval (forward only) R2Plus1D-18+Conv2D-10 "
+               "b32 8x224^2 from 240x320", **trace(state, fused, raw, args.steps, args.top)}
+    else:
+        out = {"card": smi, "config": "Cross-N1024 R2Plus1D-18+Conv2D-10 b32 8x224^2",
+               "phase_ms": phase_times(state, cfg, raw, args.steps),
+               **trace(state, fused, raw, args.steps, args.top)}
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

@@ -11,6 +11,8 @@
    (K1's, K2's and K3's launches also apart, as device intervals in a
    torch.profiler trace; beside K1, cuBLAS's f32 product of its DFT's
    shape as a reference; K3's da/db must be the same bits on two calls).
+   Beside K5 in bf16, ``ref_cudnn_bf16_ms``: the two bf16 cuDNN
+   convolutions the eval module would run without K5 (a yardstick only).
    K4 is timed as its device interval with cold bank rows: a ring of
    NCE_RING index draws, more rows than L2 holds, cycled across
    launches; its CUDA-event time on one warm draw, the wrapper's host
@@ -30,7 +32,8 @@
    step, 5 timed ones with the counters reset just before them, then one
    embed call; checks finite losses, a state left bit for bit as it was,
    reproducible losses per batch index, and the launches of each kernel
-   (K5 on the 13 stride-1 pairs of every forward);
+   (K5 on the 13 stride-1 pairs of every forward); prints K5's device ms
+   per eval step and the step's device-busy ms (torch.profiler);
 6. prints one JSON line per check, a summary line per slice, the
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 
@@ -62,6 +65,7 @@ from avid_cma_tpu_torch.ops.kernels import (
     spectrogram,
     stem_pool,
 )
+from avid_cma_tpu_torch.scripts.r2p1d_block_bench import cudnn_bf16_pair, cudnn_weights
 from avid_cma_tpu_torch.train.builders import (
     build_eval,
     build_pretrain,
@@ -110,7 +114,7 @@ KERNELS = {
         name="K4 nce_gather", source="avid_cma_tpu_torch/csrc/nce_gather.cu",
         replaces="avid_cma_tpu/ops/pallas/nce_gather.py:113"),
     "r2p1d_pair": dict(
-        name="K5 r2p1d_pair", source="avid_cma_tpu_torch/csrc/r2p1d_pair.cu",
+        name="K5 r2p1d_pair", source="avid_cma_tpu_torch/csrc/r2p1d_pair_mma.cu",
         replaces="avid_cma_tpu/ops/pallas/r2p1d_block.py:84"),
 }
 EXPECTED_LAUNCHES = {"spectrogram": 5, "stem_pool_fwd": 5, "stem_pool_bwd": 5,
@@ -377,11 +381,21 @@ def check_r2p1d_pair(results: dict) -> None:
         flops = 2.0 * b * c * c * (t * _taps(h) * _taps(w) + h * w * _taps(t))
         nbytes = 2 * x.numel() * es + 12 * c * c * es + 2 * c * 4
         bf16 = dtype == torch.bfloat16
+        # the yardstick in bf16: the two cuDNN convolutions the eval module
+        # would run without K5 (never called by the port for K5's work)
+        extra = {}
+        if bf16:
+            cw = cudnn_weights(ws, wt)
+            extra["ref_cudnn_bf16_ms"] = time_ms(lambda: cudnn_bf16_pair(x, *cw, scale, bias), 10)
+            plan = r2p1d_pair.plan_bf16(
+                *shape, torch.cuda.get_device_properties(0).multi_processor_count)
+            extra["plan"] = {k: getattr(plan, k) for k in ("tile_h", "frames", "smem_bytes", "grid")}
         report(results, "r2p1d_pair", f"{case} {list(shape)}", abs_err, rel,
                8e-3 if bf16 else 1e-5,
                lambda: r2p1d_pair.r2p1d_pair(x, ws, wt, scale, bias),
                lambda: r2p1d_pair.plain_pair(x, ws, wt, scale, bias),
-               nbytes, flops, iters=10, peak_flops=BF16_FLOPS if bf16 else F32_FLOPS)
+               nbytes, flops, iters=10, peak_flops=BF16_FLOPS if bf16 else F32_FLOPS,
+               extra=extra)
 
 
 def check_small_step() -> None:
@@ -543,6 +557,9 @@ def run_eval_slice() -> dict:
     require(float(losses[0]) != float(losses[1]), "batches 0 and 1 drew the same negatives")
     require(launches == EXPECTED_EVAL_LAUNCHES,
             f"kernel launches on the eval path {launches}, expected {EXPECTED_EVAL_LAUNCHES}")
+    # device ms per eval step (torch.profiler): K5's 13 launches, and every
+    # device interval of the step (one stream, so their sum is the busy time)
+    split = launch_split_ms(lambda: fused_eval(state, raw, 0), ("r2p1d_pair", ""), iters=3)
 
     with torch.inference_mode():
         batch = preprocess_batch(raw, cfg.preprocess(), train=False)
@@ -562,6 +579,7 @@ def run_eval_slice() -> dict:
         "losses": losses.tolist(), "warmup_s": warmup_s, "step_ms": dt / TIMED_STEPS * 1e3,
         "clips_per_sec": b * TIMED_STEPS / dt, "peak_mem_gib": peak, "launches": launches,
         "embed_launches": embed_launches, "state_unchanged": True,
+        "k5_device_ms_per_step": split["r2p1d_pair"], "device_busy_ms_per_step": split[""],
     }
 
 

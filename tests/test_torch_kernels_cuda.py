@@ -325,21 +325,80 @@ def test_r2p1d_pair_kernel_matches_plain(dev, t, hw, c, dtype):
     assert float((got.float() - ref.float()).abs().max() / ref.float().abs().max()) <= tol
 
 
-# shapes that take each tile shape of csrc/r2p1d_pair.cu: 64, 32, 16 pixels
-# by 64, 128, 256 channels, and the narrow 32-pixel tile by 64 channels that
-# only an intermediate too large for those gets (32 frames at C=64)
-@pytest.mark.parametrize("shape,dtype", [
-    ((4, 2, 20, 20, 64), torch.bfloat16),
-    ((2, 3, 9, 9, 128), torch.bfloat16),
-    ((2, 2, 9, 9, 256), torch.float32),
-    ((1, 32, 7, 7, 64), torch.bfloat16),
-], ids=["64px", "32px", "16px", "32-frames"])
-def test_r2p1d_pair_kernel_tile_shapes(dev, shape, dtype):
+# shapes that take each tile of the bf16 plan (tile_h x 8 pixels, frames
+# sharing a weight tile; r2p1d_pair.plan_bf16 on an H100's 132 SMs), and
+# the CUDA-core kernel's 16-pixel tile in f32
+@pytest.mark.parametrize("shape,dtype,tile", [
+    ((4, 2, 20, 20, 64), torch.bfloat16, (2, 2)),
+    ((2, 3, 9, 9, 128), torch.bfloat16, (2, 2)),
+    ((2, 2, 9, 9, 256), torch.float32, None),
+    ((1, 32, 7, 7, 64), torch.bfloat16, (2, 2)),
+    ((6, 2, 40, 40, 64), torch.bfloat16, (8, 1)),
+    ((10, 2, 20, 20, 64), torch.bfloat16, (8, 2)),
+    ((5, 2, 20, 20, 64), torch.bfloat16, (4, 2)),
+    ((5, 1, 20, 20, 64), torch.bfloat16, (4, 1)),
+    ((2, 1, 9, 9, 128), torch.bfloat16, (2, 1)),
+], ids=["2x8-2f-20x20", "2x8-2f-9x9", "f32-16px", "2x8-2f-32-frames", "8x8-1f", "8x8-2f",
+        "4x8-2f", "4x8-1f", "2x8-1f"])
+def test_r2p1d_pair_kernel_tile_shapes(dev, shape, dtype, tile):
+    if tile is not None:
+        plan = r2p1d_pair.plan_bf16(*shape, 132)
+        assert (plan.tile_h, plan.frames) == tile
     args = _pair_inputs(dev, shape, dtype)
     got = r2p1d_pair.r2p1d_pair(*args).float()
     ref = r2p1d_pair.plain_pair(*args).float()
     tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
     assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("shape", [(6, 2, 40, 40, 64), (2, 3, 9, 9, 128)],
+                         ids=["8x8-tiles", "2x8-tiles-ragged"])
+def test_r2p1d_pair_bf16_tile_borders_in_halo(dev, shape):
+    """Input only on the pixels of each tile's border rows and columns, so
+    every output reads its neighbours across a tile edge through the staged
+    halo: a wrong shift, swizzle or zero fill shows."""
+    args = list(_pair_inputs(dev, shape, torch.bfloat16, seed=7))
+    b, t, h, w, c = shape
+    th = r2p1d_pair.plan_bf16(*shape, 132).tile_h
+    ys, xs = torch.arange(h, device=dev), torch.arange(w, device=dev)
+    border = ((ys % th == 0) | (ys % th == th - 1))[:, None] | ((xs % 8 == 0) | (xs % 8 == 7))[None]
+    args[0] = (args[0] * border[None, None, :, :, None]).contiguous()
+    got = r2p1d_pair.r2p1d_pair(*args).float()
+    ref = r2p1d_pair.plain_pair(*args).float()
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 8e-3
+
+
+@pytest.mark.parametrize("c", [128, 256])
+@pytest.mark.parametrize("hw", [28, 14])
+def test_r2p1d_pair_bf16_ragged_stage_planes(dev, hw, c):
+    """The late stages' planes (28^2, 14^2) are not multiples of the 8-pixel
+    tile: the ragged tiles are masked."""
+    args = _pair_inputs(dev, (2, 3, hw, hw, c), torch.bfloat16, seed=8)
+    got = r2p1d_pair.r2p1d_pair(*args).float()
+    ref = r2p1d_pair.plain_pair(*args).float()
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 8e-3
+
+
+def test_r2p1d_pair_bf16_same_bits_twice(dev):
+    args = _pair_inputs(dev, (2, 8, 56, 56, 64), torch.bfloat16, seed=9)
+    first = r2p1d_pair.r2p1d_pair(*args)
+    second = r2p1d_pair.r2p1d_pair(*args)
+    assert torch.equal(first, second)
+
+
+def test_r2p1d_pair_bf16_and_f32_paths_side_by_side(dev):
+    """The same values through both kernels in one run: bf16 (tensor cores)
+    within 8e-3 and f32 (CUDA cores) within 1e-5 of the plain version,
+    each launched once."""
+    shape = (2, 4, 28, 28, 128)
+    x, ws, wt, a, b = _pair_inputs(dev, shape, torch.float32, seed=10)
+    before = _lib.LAUNCHES["r2p1d_pair"]
+    for dtype, tol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-5)):
+        args = (x.to(dtype), ws.to(dtype), wt.to(dtype), a, b)
+        got = r2p1d_pair.r2p1d_pair(*args).float()
+        ref = r2p1d_pair.plain_pair(*args).float()
+        assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+    assert _lib.LAUNCHES["r2p1d_pair"] == before + 2
 
 
 def test_r2p1d_pair_kernel_temporal_edges(dev):
