@@ -1,14 +1,16 @@
-"""Video augmentation on device: the ``msc+color`` train path and both
-eval paths (counterpart of avid_cma_tpu/ops/video_aug.py).
+"""Video augmentation on device: the train and eval paths of
+``msc+color`` and ``crop+color`` (counterpart of
+avid_cma_tpu/ops/video_aug.py).
 
-Random-resized crop with one box per clip on the integer grid, bilinear
+Random-resized crop with one box per clip on the integer grid (or, for
+``crop+color``, an exact resize and then an integer-grid crop), bilinear
 resize equal to ``jax.image.scale_and_translate(method="bilinear")``
 (which antialiases when it downscales), horizontal flip, colour jitter in
-the canonical brightness -> contrast -> saturation -> hue order, ImageNet
-normalization; for eval, the same resize over the whole frame, then a
-centre crop. Every op takes its random draws as arguments; the caller
-draws them (``data/pipelines.py``), so tests can hand the JAX ops and
-these the same numbers.
+the canonical brightness -> contrast -> saturation -> hue order or in a
+per-clip permutation of it, ImageNet normalization; for eval, the same
+resize over the whole frame, then a centre crop. Every op takes its
+random draws as arguments; the caller draws them (``data/pipelines.py``),
+so tests can hand the JAX ops and these the same numbers.
 """
 
 from __future__ import annotations
@@ -172,28 +174,63 @@ def _hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
-def color_jitter(clips: torch.Tensor, f_b: torch.Tensor, f_c: torch.Tensor,
-                 f_s: torch.Tensor, f_h: torch.Tensor) -> torch.Tensor:
-    """Clip-consistent colour jitter of float RGB in [0, 1], canonical
-    order. Factors are (B,) tensors (cast to the clips' dtype); a None
-    factor skips its op (strength 0)."""
+def _jitter_ops(f_b, f_c, f_s, f_h, dtype):
+    """The four jitter ops (brightness, contrast, saturation, hue) with
+    their (B,) factors cast to ``dtype``; None for a skipped op."""
     def bc(f):
-        return f.to(clips.dtype)[:, None, None, None, None]
+        return f.to(dtype)[:, None, None, None, None]
 
-    x = clips
-    if f_b is not None:
-        x = torch.clamp(x * bc(f_b), 0.0, 1.0)
-    if f_c is not None:
+    def brightness(x):
+        return torch.clamp(x * bc(f_b), 0.0, 1.0)
+
+    def contrast(x):
         # per-FRAME mean luminance (PIL / torchvision adjust_contrast)
         lum = _gray(x).mean(dim=(-2, -1), keepdim=True)[..., None]
-        x = torch.clamp((x - lum) * bc(f_c) + lum, 0.0, 1.0)
-    if f_s is not None:
+        return torch.clamp((x - lum) * bc(f_c) + lum, 0.0, 1.0)
+
+    def saturation(x):
         gray = _gray(x)[..., None]
-        x = torch.clamp((x - gray) * bc(f_s) + gray, 0.0, 1.0)
-    if f_h is not None:
+        return torch.clamp((x - gray) * bc(f_s) + gray, 0.0, 1.0)
+
+    def hue(x):
         hsv = _rgb_to_hsv(x)
-        hue = torch.remainder(hsv[..., 0] + bc(f_h)[..., 0], 1.0)
-        x = _hsv_to_rgb(torch.stack([hue, hsv[..., 1], hsv[..., 2]], dim=-1))
+        shifted = torch.remainder(hsv[..., 0] + bc(f_h)[..., 0], 1.0)
+        return _hsv_to_rgb(torch.stack([shifted, hsv[..., 1], hsv[..., 2]], dim=-1))
+
+    return [op if f is not None else None
+            for op, f in zip((brightness, contrast, saturation, hue), (f_b, f_c, f_s, f_h))]
+
+
+def color_jitter(clips: torch.Tensor, f_b: torch.Tensor, f_c: torch.Tensor,
+                 f_s: torch.Tensor, f_h: torch.Tensor,
+                 perm: torch.Tensor | None = None) -> torch.Tensor:
+    """Clip-consistent colour jitter of float RGB in [0, 1]. Factors are
+    (B,) tensors (cast to the clips' dtype); a None factor skips its op
+    (strength 0). ``perm`` None applies the canonical brightness ->
+    contrast -> saturation -> hue order; else ``perm`` (B, 4), each row a
+    permutation of the op ids 0-3, gives each clip its own order, skipped
+    ops passed over (``order="random"`` of the JAX op). Like the JAX op
+    under vmap, each position of the order evaluates every active op on
+    the whole batch and selects per clip."""
+    ops = _jitter_ops(f_b, f_c, f_s, f_h, clips.dtype)
+    active = [k for k, op in enumerate(ops) if op is not None]
+    if perm is None or len(active) <= 1:
+        for k in active:
+            clips = ops[k](clips)
+        return clips
+    # drop the skipped ops from each row, keeping the order of the rest:
+    # rank every op by its position in the row, skipped ops last
+    pos = torch.argsort(perm, dim=1)
+    skipped = torch.tensor([op is None for op in ops], device=perm.device)
+    pos = torch.where(skipped, pos + len(ops), pos)
+    order = torch.argsort(pos, dim=1)[:, :len(active)]
+    x = clips
+    for pos in range(len(active)):
+        out = x
+        for k in active:
+            sel = (order[:, pos] == k)[:, None, None, None, None]
+            out = torch.where(sel, ops[k](x), out)
+        x = out
     return x
 
 
@@ -238,6 +275,36 @@ def crop_augment_clips_eval(frames: torch.Tensor, crop_size: int = 224,
     """Eval path of ``crop+color``: an exact (aspect-distorting)
     Resize(resize), then a centre crop and normalize."""
     return _resize_center_crop(frames, tuple(resize), crop_size, dtype)
+
+
+def crop_augment_clips_train(frames: torch.Tensor, top: torch.Tensor, left: torch.Tensor,
+                             do_flip: torch.Tensor, jitter_u: torch.Tensor,
+                             perm: torch.Tensor | None, crop_size: int = 224,
+                             resize: Tuple[int, int] = (256, 256),
+                             color: Tuple[float, ...] = (0.4, 0.4, 0.4, 0.2),
+                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Train path of ``crop+color``: an exact (aspect-distorting)
+    Resize(resize) of uint8 (B, T, H, W, 3), then a crop_size^2 crop at
+    the integer origin (top, left) (B,) int, drawn by the caller as
+    randint(0, r - crop_size + 1), then flip where ``do_flip`` (B,), the
+    jitter from uniform draws ``jitter_u`` (B, 4) in the order ``perm``,
+    and normalize."""
+    b, _, h, w, _ = frames.shape
+    rh, rw = resize
+    if rh < crop_size or rw < crop_size:
+        raise ValueError(f"resize {tuple(resize)} smaller than crop {crop_size}")
+    zero = torch.zeros(b, device=frames.device)
+    resized = crop_resize(frames, zero, zero, torch.full_like(zero, float(h)),
+                          torch.full_like(zero, float(w)), (rh, rw), dtype)
+    offs = torch.arange(crop_size, device=frames.device)
+    rows = (top.long()[:, None] + offs)[:, :, None]   # (B, S, 1)
+    cols = (left.long()[:, None] + offs)[:, None, :]  # (B, 1, S)
+    bi = torch.arange(b, device=frames.device)[:, None, None]
+    # advanced indices around a slice put their (B, S, S) first
+    out = resized[bi, :, rows, cols].permute(0, 3, 1, 2, 4)
+    out = flip(out / 255.0, do_flip)
+    out = color_jitter(out, *jitter_factors(jitter_u, color), perm=perm)
+    return normalize_clip(out)
 
 
 def augment_clips_eval(frames: torch.Tensor, crop_size: int = 224,

@@ -1,22 +1,29 @@
-"""The slice's configuration and its builder.
+"""Config-driven builders (counterpart of avid_cma_tpu/train/builders.py).
 
-``kinetics_cross_n1024()`` holds the values of the published Kinetics
-recipe ``configs/main/avid/kinetics/Cross-N1024.yaml`` that this slice
-uses, as a frozen dataclass (the card host has no ``yaml``; a CPU test
-holds the two together). ``build_pretrain`` wires model, optimizer,
-banks and the fused step on a device; ``build_eval`` the same state with
-the fused eval-loss step and the embed fn.
+``pretrain_config(cfg)`` turns a loaded YAML ``Config`` into the frozen
+``PretrainConfig`` the step builders take; ``kinetics_cross_n1024()`` is
+the published Kinetics recipe ``configs/main/avid/kinetics/Cross-N1024.yaml``
+written out as one (a CPU test holds the two together).
+``build_pretrain`` wires model, optimizer, banks and the fused step on a
+device; ``build_eval`` the same state with the fused eval-loss step and
+the embed fn. ``build_preprocess_config``, ``build_dataset`` and
+``build_dataloader`` wire the YAML's ``dataset`` section to the host data
+layer.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+import avid_cma_tpu_torch.data  # noqa: F401  (registers the datasets)
+from avid_cma_tpu_torch.config import Config
 from avid_cma_tpu_torch.criterions.avid import AVIDConfig
+from avid_cma_tpu_torch.data.loader import CachedDataLoader, DataLoader, MultiprocessDataLoader
 from avid_cma_tpu_torch.data.pipelines import PreprocessConfig
+from avid_cma_tpu_torch.registry import DATASETS
 from avid_cma_tpu_torch.device import resolve_device, set_full_f32_precision
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
@@ -61,6 +68,11 @@ class PretrainConfig:
     momentum: float = 0.5
     xModal_coeff: float = 1.0
     wModal_coeff: float = 0.0
+    # video augmentation (PreprocessConfig's defaults)
+    min_area: float = 0.08
+    color: Tuple[float, float, float, float] = (0.4, 0.4, 0.4, 0.2)
+    resize: Tuple[int, int] = (256, 256)
+    jitter_order: str = "canonical"
 
     @property
     def batch_size(self) -> int:
@@ -74,6 +86,8 @@ class PretrainConfig:
     def preprocess(self) -> PreprocessConfig:
         return PreprocessConfig(
             transform=self.transform, crop_size=self.crop_size,
+            min_area=self.min_area, color=self.color, resize=self.resize,
+            jitter_order=self.jitter_order,
             audio_fps=self.audio_fps, n_fft=self.n_fft,
             spectrogram_fps=self.spectrogram_fps,
             audio_clip_duration=self.audio_clip_duration)
@@ -103,6 +117,195 @@ def kinetics_cross_n1024() -> PretrainConfig:
         num_data=232067, num_negatives=1024, momentum=0.5,
         xModal_coeff=1.0, wModal_coeff=0.0,
     )
+
+
+def check_model_dtype(spec, device: str | torch.device) -> None:
+    """``model.dtype`` (avid_cma_tpu/train/builders.py:20-42): ``auto``
+    computes the convolutions in bf16 on the card and f32 on the CPU;
+    ``bfloat16`` is the card's and ``float32`` the CPU's. ``float32`` on
+    the card raises: the stem kernels K2/K3 take bf16 only (ROADMAP A4's
+    open point), and nothing falls back to another dtype."""
+    spec = "auto" if spec is None else str(spec)
+    names = {"auto": None, "float32": "f32", "f32": "f32", "bfloat16": "bf16", "bf16": "bf16"}
+    if spec not in names:
+        raise ValueError(f"unknown model.dtype {spec!r}: expected auto|float32|bfloat16")
+    want, dev = names[spec], torch.device(device).type
+    if want == "f32" and dev == "cuda":
+        raise NotImplementedError(
+            "model.dtype=float32 on the card is not ported: the stem kernels K2/K3 "
+            "take bf16 only (ROADMAP A4); use model.dtype=auto or bfloat16")
+    if want == "bf16" and dev == "cpu":
+        raise NotImplementedError(
+            "model.dtype=bfloat16 on the CPU is not ported: the CPU path computes "
+            "f32; use model.dtype=auto or float32")
+
+
+def build_preprocess_config(db_cfg: Config) -> PreprocessConfig:
+    """Dispatch on the dataset's ``transform:``/``transforms:`` key
+    (reference: utils/eval_utils.py:70-87, utils/main_utils.py:151-165;
+    unknown values raise there and here).
+
+    Reference quirk kept: for 'crop+color' the reference dispatch passes
+    ONLY crop/num_frames/pad_missing/augment (utils/eval_utils.py:80-85),
+    so VideoPrep_Crop_CJ runs its default color (0.4, 0.4, 0.4, 0.2) and
+    the config's ``color:`` is ignored; ``resize:`` is honoured (it
+    matches the default in every shipped config)."""
+    transform = str(db_cfg.get("transform", db_cfg.get("transforms", "msc+color"))).strip()
+    if transform not in ("msc+color", "crop+color"):
+        raise ValueError(
+            f"unknown dataset transform {transform!r}: expected 'msc+color' or "
+            "'crop+color' (reference raises too, utils/eval_utils.py:86-87)")
+    if transform == "crop+color":
+        resize = db_cfg.get("resize", 256)
+        if isinstance(resize, (list, tuple)):
+            resize = tuple(int(r) for r in resize)
+        else:
+            resize = (int(resize), int(resize))
+        color = (0.4, 0.4, 0.4, 0.2)
+    else:
+        resize = (256, 256)
+        color = tuple(float(c) for c in db_cfg.get("color", (0.4, 0.4, 0.4, 0.2)))
+    return PreprocessConfig(
+        transform=transform,
+        crop_size=int(db_cfg.get("crop_size", 224)),
+        min_area=float(db_cfg.get("min_area", 0.08)),
+        color=color,
+        resize=resize,
+        jitter_order=str(db_cfg.get("jitter_order", "canonical")),
+        audio_fps=int(db_cfg.get("audio_fps", 24000)),
+        n_fft=int(db_cfg.get("n_fft", 512)),
+        spectrogram_fps=float(db_cfg.get("spectrogram_fps", 100.0)),
+        audio_clip_duration=float(db_cfg.get("audio_clip_duration", 2.0)),
+    )
+
+
+def pretrain_config(cfg: Config, num_data: Optional[int] = None) -> PretrainConfig:
+    """The ``PretrainConfig`` of a loaded pretraining YAML: one card takes
+    ``dataset.batch_size`` clips a step. ``num_data`` overrides
+    ``loss.args.num_data`` (the loop passes the dataset's size). Raises
+    for what the port does not build: another ``model.arch`` than
+    av_wrapper, another loss than AVID (AVID-CMA is ROADMAP A5)."""
+    if str(cfg.model.get("arch", "av_wrapper")) != "av_wrapper":
+        raise ValueError(f"model.arch {cfg.model.get('arch')!r}: the port builds av_wrapper only")
+    loss_name = str(cfg.loss["name"])
+    if loss_name != "AVID":
+        raise NotImplementedError(
+            f"loss.name {loss_name!r}: only AVID is ported; AVID-CMA (positive "
+            "mining, the four-head loss) is ROADMAP A5")
+    db, opt, args = cfg.dataset, cfg.optimizer, cfg.model.get("args", {})
+    loss = cfg.loss.get("args", {})
+    pp = build_preprocess_config(db)
+    proj = args.get("proj_dim", 128)
+    return PretrainConfig(
+        seed=int(cfg.get("seed", 0)),
+        global_batch_size=int(db["batch_size"]), num_replicas=1,
+        video_clip_duration=float(db.get("video_clip_duration", db.get("clip_duration", 0.5))),
+        video_fps=float(db.get("video_fps", 16.0)),
+        crop_size=pp.crop_size,
+        audio_clip_duration=pp.audio_clip_duration, audio_fps=pp.audio_fps,
+        spectrogram_fps=pp.spectrogram_fps, n_fft=pp.n_fft, transform=pp.transform,
+        optimizer=str(opt.get("name", "adam")),
+        weight_decay=float(opt.get("weight_decay", 0.0)),
+        base_lr=float(opt["lr"]["base_lr"]),
+        gamma=float(opt["lr"].get("gamma", 1.0)),
+        milestones=tuple(int(m) for m in opt["lr"].get("milestones", ())),
+        proj_dim=tuple(int(p) for p in (proj if isinstance(proj, (list, tuple)) else [proj])),
+        video_backbone=str(args.get("video_backbone", "R2Plus1D")),
+        video_depth=int(args.get("video_backbone_args", {}).get("depth", 18)),
+        audio_backbone=str(args.get("audio_backbone", "Conv2D")),
+        audio_depth=int(args.get("audio_backbone_args", {}).get("depth", 10)),
+        num_data=int(num_data if num_data is not None else loss["num_data"]),
+        num_negatives=int(loss.get("num_negatives", 1024)),
+        momentum=float(loss.get("momentum", 0.5)),
+        xModal_coeff=float(loss.get("xModal_coeff", 1.0)),
+        wModal_coeff=float(loss.get("wModal_coeff", 0.0)),
+        min_area=pp.min_area, color=pp.color, resize=pp.resize,
+        jitter_order=pp.jitter_order,
+    )
+
+
+def build_dataset(db_cfg: Config, split_cfg: Config, mode: Optional[str] = None,
+                  return_audio: bool = True, return_labels: bool = False,
+                  fold: Optional[int] = None):
+    """reference: utils/main_utils.py:138-212 (transform + dataset
+    assembly) and utils/eval_utils.py:67-128 (benchmark variants).
+    Decode-only on the host; device preprocessing replaces the transform
+    objects."""
+    name = db_cfg["name"]
+    split = split_cfg["split"]
+    if fold is not None:
+        split = split.format(fold=fold)
+    kwargs = dict(
+        subset=split,
+        root=db_cfg.get("root"),
+        backend=db_cfg.get("backend", "auto"),
+        mode=mode or split_cfg.get("mode", "clip"),
+        return_video=True,
+        video_clip_duration=float(
+            db_cfg.get("video_clip_duration", db_cfg.get("clip_duration", 0.5))),
+        video_fps=float(db_cfg.get("video_fps", 16.0)),
+        return_audio=return_audio,
+        return_labels=return_labels,
+        return_index=True,
+        max_offsync_augm=0.5 if split_cfg.get("use_augmentation") and return_audio else 0.0,
+        mode_clips_per_video=int(split_cfg.get("clips_per_video", 1)),
+    )
+    if return_audio:
+        kwargs.update(
+            audio_clip_duration=float(db_cfg.get("audio_clip_duration", 2.0)),
+            audio_fps=int(db_cfg.get("audio_fps", 24000)),
+        )
+    if "synthetic_size" in db_cfg:
+        kwargs["synthetic_size"] = int(db_cfg["synthetic_size"])
+    if name == "synthetic_av" and "num_classes" in db_cfg:
+        # only the learnable synthetic dataset takes this constructor arg
+        kwargs["num_classes"] = int(db_cfg["num_classes"])
+    if db_cfg.get("decode_size") is not None:
+        # fixed decode size (H, W): real backends cover-scale+crop at
+        # decode time, so heterogeneous media gives one batch shape
+        kwargs["decode_size"] = tuple(int(x) for x in db_cfg["decode_size"])
+    if db_cfg.get("anno_path") is not None:
+        kwargs["anno_path"] = db_cfg["anno_path"]
+    if db_cfg.get("cache_path") is not None and name == "audioset":
+        kwargs["cache_path"] = db_cfg["cache_path"]
+        kwargs.pop("anno_path", None)
+    if name == "audioset":
+        kwargs["return_labels"] = False  # AudioSet has no labels here
+    return DATASETS.get(name)(**kwargs)
+
+
+def build_dataloader(dataset, db_cfg: Config, split_cfg: Config, num_workers: int = 4,
+                     num_shards: int = 1, shard_index: int = 0, seed: int = 0,
+                     kind: str = "threaded"):
+    """reference: utils/main_utils.py:214-228 (DataLoader +
+    DistributedSampler, per-process batch division). ``kind`` (the
+    config's top-level ``loader:``): 'threaded', the in-process
+    prefetcher; 'native', producer processes over the C++ shared-memory
+    ring (raises when g++ cannot build it); 'cached', decode once and
+    replay from host memory."""
+    common = dict(
+        batch_size=int(db_cfg["batch_size"]) // max(num_shards, 1),
+        shuffle=bool(split_cfg.get("use_shuffle", split_cfg.get("use_augmentation", True))),
+        drop_last=bool(split_cfg.get("drop_last", True)),
+        num_workers=num_workers,
+        num_shards=num_shards,
+        shard_index=shard_index,
+        seed=seed,
+    )
+    if kind == "native":
+        loader = MultiprocessDataLoader(dataset, **common)
+    elif kind == "threaded":
+        loader = DataLoader(dataset, **common)
+    elif kind == "cached":
+        loader = CachedDataLoader(DataLoader(dataset, **common))
+    else:
+        raise ValueError(f"unknown loader kind '{kind}' (threaded|native|cached)")
+    if len(loader) == 0:
+        raise ValueError(
+            f"empty loader: dataset has {len(dataset)} items but "
+            f"batch_size={common['batch_size']} with "
+            f"drop_last={common['drop_last']} yields zero batches")
+    return loader
 
 
 def _build_state(cfg: PretrainConfig, device: str | torch.device

@@ -1,18 +1,35 @@
-"""Weights from the JAX package into the port (the key mapping of
-``flax_to_torch_state`` and the layout transposes of
-avid_cma_tpu/train/checkpoint.py:47-54,139-207, in the port's own code).
+"""Checkpoints of the port (counterpart of avid_cma_tpu/train/checkpoint.py).
 
-Only the flax -> port direction is ported; checkpoints on disk wait.
+- ``flax_to_port_state``: weights from the JAX package into the port (the
+  key mapping of ``flax_to_torch_state`` and the layout transposes of
+  avid_cma_tpu/train/checkpoint.py:47-54,139-207).
+- ``CheckpointManager``: the loop's own checkpoints, one ``torch.save`` of
+  the whole train state per step saved (model, optimizer, scheduler,
+  banks and Z, step, epoch, the generator's state, the loader's
+  position), each written to a temporary file and moved into place, so a
+  crash leaves the previous checkpoint whole. The ``max_to_keep`` newest
+  are kept, and milestone copies (the reference's
+  ``checkpoint-ep{N}.pth.tar``) always.
+- ``export_pth_tar`` and the ``import_*_pth_tar`` functions: the
+  reference's ``.pth.tar`` layout (utils/main_utils.py:271-287): model
+  keys prefixed ``module.``, the Adam moments indexed in the reference's
+  parameter order, ``train_criterion`` holding both banks and
+  ``avg_exp_score``. The port's state-dict keys are the reference's, so
+  no key mapping is needed.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from collections.abc import Mapping
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+
+from avid_cma_tpu_torch.criterions.avid import BankState
+from avid_cma_tpu_torch.train.state import TrainState
 
 _BN_SUFFIX = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
@@ -85,3 +102,245 @@ def flax_to_port_state(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     walk([], variables["params"])
     walk([], variables.get("batch_stats", {}))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the reference's .pth.tar layout
+# ---------------------------------------------------------------------------
+
+def reference_parameter_order(keys: Iterable[str]) -> List[str]:
+    """Sort reference-format PARAMETER keys (buffers excluded) into the
+    reference ``model.parameters()`` registration order, the order torch
+    optimizers index their per-parameter state by (a copy of
+    avid_cma_tpu/train/checkpoint.py:278-320): video_model, audio_model,
+    video_proj, audio_proj; stem before stages; within a block the
+    attribute order of network_blocks.py:13-51; weight before bias."""
+    towers = {"video_model": 0, "audio_model": 1, "video_proj": 2, "audio_proj": 3}
+    r2p1d = {"spt_conv1": 0, "spt_bn1": 1, "tmp_conv1": 2, "tmp_bn1": 3,
+             "spt_conv2": 4, "spt_bn2": 5, "tmp_conv2": 6, "out_bn": 7, "res_conv": 8}
+    basic2d = {"conv1": 0, "bn1": 1, "conv2": 2, "bn2": 3}
+    leaf_order = {"weight": 0, "bias": 1}
+
+    def sort_key(key):
+        parts = re.sub(r"^module\.", "", key).split(".")
+        tower, rest, leaf = parts[0], parts[1:-1], parts[-1]
+        if tower in ("video_proj", "audio_proj"):
+            return (towers[tower], int(rest[1]), 0, 0, leaf_order[leaf])
+        if rest[0] == "conv1":  # stem Sequential: 0 = conv, 1 = BN
+            return (towers[tower], 0, int(rest[1]), 0, leaf_order[leaf])
+        if tower == "audio_model":  # block<i>.<sub>
+            return (towers[tower], int(rest[0][-1]), 0, basic2d[rest[1]], leaf_order[leaf])
+        stage = int(rest[0][4])  # conv2x -> 2
+        if rest[1].isdigit():
+            block, sub = int(rest[1]), rest[2]
+        else:
+            block, sub = 0, rest[1]  # depth-10 bare block
+        return (towers[tower], stage, block, r2p1d[sub], leaf_order[leaf])
+
+    params = [k for k in keys if k.rsplit(".", 1)[-1] in ("weight", "bias")
+              and "running_" not in k and "num_batches" not in k]
+    return sorted(params, key=sort_key)
+
+
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True).contiguous()
+
+
+def export_pth_tar(path: str, model: torch.nn.Module, bank: Optional[BankState] = None,
+                   epoch: int = 0, optimizer: Optional[torch.optim.Optimizer] = None) -> None:
+    """Write a reference-compatible checkpoint {'epoch', 'model',
+    'optimizer', 'train_criterion'} (the layout of
+    avid_cma_tpu/train/checkpoint.py:354-423). ``optimizer`` (Adam)
+    exports its moments as a torch ``optimizer.state_dict()`` indexed in
+    the reference parameter order, so the reference resumes with intact
+    moments; parameters Adam has not stepped yet are left out."""
+    sd = model.state_dict()
+    ckp: Dict[str, Any] = {"epoch": epoch,
+                           "model": {f"module.{k}": _cpu(v) for k, v in sd.items()}}
+    if optimizer is not None:
+        if not isinstance(optimizer, torch.optim.Adam):
+            raise ValueError("only Adam moments can be exported to the reference layout")
+        params = dict(model.named_parameters())
+        order = reference_parameter_order(sd.keys())
+        group = optimizer.param_groups[0]
+        state = {}
+        for i, key in enumerate(order):
+            st = optimizer.state.get(params[key])
+            if st:
+                state[i] = {"step": torch.tensor(float(st["step"])),
+                            "exp_avg": _cpu(st["exp_avg"]),
+                            "exp_avg_sq": _cpu(st["exp_avg_sq"])}
+        ckp["optimizer"] = {
+            "state": state,
+            "param_groups": [{
+                "lr": float(group["lr"]), "betas": tuple(group["betas"]),
+                "eps": float(group["eps"]), "weight_decay": float(group["weight_decay"]),
+                "amsgrad": False, "maximize": False, "foreach": None, "capturable": False,
+                "differentiable": False, "fused": None, "params": list(range(len(order))),
+            }],
+        }
+    if bank is not None:
+        ckp["train_criterion"] = {
+            "nce_average.view1_mem": _cpu(bank.view1_mem),
+            "nce_average.view2_mem": _cpu(bank.view2_mem),
+            "criterion.avg_exp_score": torch.tensor(float(bank.z)),
+        }
+    _atomic_save(ckp, path)
+
+
+def _load(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def import_model_pth_tar(path: str) -> Dict[str, torch.Tensor]:
+    """A reference pretrain checkpoint's model -> the port's state_dict
+    (``module.`` stripped, ``num_batches_tracked`` dropped; reference
+    loader: utils/eval_utils.py:337-339)."""
+    ckp = _load(path)
+    sd = ckp["model"] if "model" in ckp else ckp
+    return {re.sub(r"^module\.", "", k): v for k, v in sd.items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def import_criterion_pth_tar(path: str, device: str | torch.device = "cpu") -> BankState:
+    """Banks and the frozen Z from a reference checkpoint's
+    train_criterion (criterions/avid_cma.py:308-319: Z is the mean over
+    every avg_exp_score buffer; -1 when there is none)."""
+    crit = _load(path)["train_criterion"]
+    zs = [float(v) for k, v in crit.items() if "avg_exp_score" in k]
+    dev = torch.device(device)
+    return BankState(
+        view1_mem=crit["nce_average.view1_mem"].to(dev, torch.float32),
+        view2_mem=crit["nce_average.view2_mem"].to(dev, torch.float32),
+        z=torch.tensor(float(np.mean(zs)) if zs else -1.0, dtype=torch.float32, device=dev))
+
+
+def import_optimizer_pth_tar(path: str, model: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer) -> None:
+    """A reference checkpoint's ``optimizer`` section -> the Adam moments
+    of ``optimizer`` over ``model``'s parameters (inverse of
+    ``export_pth_tar``; reference resume: utils/main_utils.py:290-300).
+    Parameters the checkpoint lacks keep the state they have."""
+    ckp = _load(path)
+    if "optimizer" not in ckp:
+        raise KeyError(f"{path} has no optimizer section")
+    saved = ckp["optimizer"]["state"]
+    params = dict(model.named_parameters())
+    for i, key in enumerate(reference_parameter_order(model.state_dict().keys())):
+        st = saved.get(i, saved.get(str(i)))
+        if st is None:
+            continue
+        p = params[key]
+        optimizer.state[p] = {
+            "step": torch.tensor(float(st["step"]), dtype=torch.float32),
+            "exp_avg": st["exp_avg"].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": st["exp_avg_sq"].to(p.device, p.dtype).clone(),
+        }
+
+
+# ---------------------------------------------------------------------------
+# the loop's own checkpoints
+# ---------------------------------------------------------------------------
+
+def _atomic_save(obj: Any, path: str) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def state_payload(state: TrainState, loader_position: Dict[str, int]) -> Dict[str, Any]:
+    """Everything a resume needs, as one ``torch.save``-able dict."""
+    return {
+        "step": int(state.step), "epoch": int(state.epoch),
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "scheduler": state.scheduler.state_dict(),
+        "bank": {"view1_mem": state.bank.view1_mem, "view2_mem": state.bank.view2_mem,
+                 "z": state.bank.z},
+        "generator": state.generator.get_state(),
+        "loader": dict(loader_position),
+    }
+
+
+def load_payload(state: TrainState, payload: Dict[str, Any]) -> Dict[str, int]:
+    """Restore ``state`` in place from ``state_payload``'s dict; returns
+    the loader's position."""
+    dev = state.bank.view1_mem.device
+    state.model.load_state_dict(payload["model"], strict=True)
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.scheduler.load_state_dict(payload["scheduler"])
+    bank = payload["bank"]
+    state.bank = BankState(view1_mem=bank["view1_mem"].to(dev),
+                           view2_mem=bank["view2_mem"].to(dev), z=bank["z"].to(dev))
+    state.generator.set_state(payload["generator"])
+    state.step = int(payload["step"])
+    state.epoch = int(payload["epoch"])
+    return dict(payload["loader"])
+
+
+class CheckpointManager:
+    """The loop's checkpoints in ``directory``: ``ckpt-<step>.pt`` files
+    (reference analogue: utils/main_utils.py:265-323). Saves are
+    synchronous and atomic. Milestone steps (the reference's
+    permanently kept ``checkpoint-ep{N}.pth.tar`` copies,
+    main-avid.py:126-127) are exempt from the ``max_to_keep`` cleanup and
+    listed in ``milestones.txt``, so they survive restarts."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+        self._milestones_path = os.path.join(self.directory, "milestones.txt")
+        self._milestones = set()
+        if os.path.isfile(self._milestones_path):
+            with open(self._milestones_path) as f:
+                self._milestones = {int(x) for x in f.read().split()}
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt-{int(step):09d}.pt")
+
+    def all_steps(self) -> List[int]:
+        steps = []
+        for name in os.listdir(self.directory):
+            m = re.fullmatch(r"ckpt-(\d+)\.pt", name)
+            if m:
+                steps.append(int(m.group(1)))
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: TrainState, loader_position: Dict[str, int],
+             milestone: bool = False) -> bool:
+        """Write the checkpoint of ``step`` unless it exists (a
+        mid-epoch save landing on the epoch's end); returns whether it
+        wrote."""
+        if milestone and int(step) not in self._milestones:
+            self._milestones.add(int(step))
+            tmp = self._milestones_path + ".tmp"
+            with open(tmp, "w") as f:
+                f.write("\n".join(str(s) for s in sorted(self._milestones)))
+            os.replace(tmp, self._milestones_path)
+        if os.path.exists(self.path(step)):
+            return False
+        _atomic_save(state_payload(state, loader_position), self.path(step))
+        for old in self.all_steps()[:-self.max_to_keep]:
+            if old not in self._milestones:
+                os.remove(self.path(old))
+        return True
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> Dict[str, int]:
+        """Restore ``state`` in place from ``step`` (default: the latest);
+        returns the loader's position {epoch, batch}."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        # on the CPU: load_state_dict moves each tensor where it belongs,
+        # and Adam's step counts and the generator's state must stay there
+        payload = torch.load(self.path(step), map_location="cpu", weights_only=False)
+        return load_payload(state, payload)

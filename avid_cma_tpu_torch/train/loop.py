@@ -1,0 +1,257 @@
+"""Pretraining orchestration: the epoch/step loop (counterpart of
+avid_cma_tpu/train/loop.py, one device).
+
+Capability reference: main-avid.py:84-201 (main_worker + run_phase):
+build everything from the YAML, restore, loop epochs calling the fused
+step, checkpoint each epoch (+ milestone copies and every
+``save_freq_steps``), meters + TensorBoard, and the held-out test phase
+every ``test_freq`` epochs through the fused eval step.
+
+The host loop only feeds raw batches (host decode -> ``device_prefetch``)
+and drains metrics: the per-step losses stay on the device and are
+fetched once per ``print_freq`` window.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from avid_cma_tpu_torch import config as config_lib
+from avid_cma_tpu_torch.config import Config
+from avid_cma_tpu_torch.data.prefetch import device_prefetch
+from avid_cma_tpu_torch.device import resolve_device
+from avid_cma_tpu_torch.train import builders
+from avid_cma_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    import_criterion_pth_tar,
+    import_model_pth_tar,
+)
+from avid_cma_tpu_torch.train.state import TrainState
+from avid_cma_tpu_torch.train.step import make_fused_eval_step
+from avid_cma_tpu_torch.utils.logger import (
+    AverageMeter,
+    Logger,
+    ProgressMeter,
+    TensorBoardWriter,
+    parameter_description,
+)
+from avid_cma_tpu_torch.utils.profiling import StepWindowTracer
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise for what the port cannot run yet, naming its ROADMAP item:
+    AVID-CMA (A5), a sharded bank or more than one process (A6)."""
+    name = str(cfg.loss["name"])
+    if name.replace("-", "_") == "AVID_CMA":
+        raise NotImplementedError(
+            f"loss.name {name!r}: AVID-CMA (positive mining, the four-head loss) "
+            "is not ported yet (ROADMAP A5)")
+    if str(cfg.loss.get("bank_sharding", "replicated")) != "replicated":
+        raise NotImplementedError(
+            "loss.bank_sharding: sharded banks are not ported yet (ROADMAP A6); "
+            "set loss.bank_sharding=replicated")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "multi-process training (WORLD_SIZE > 1) is not ported yet (ROADMAP A6)")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device = "cuda",
+                    on_epoch: Optional[Callable[[Dict], None]] = None) -> TrainState:
+    """``python main_avid_torch.py <cfg.yaml>`` body (reference:
+    main-avid.py). Runs on ``device`` (raises when it names CUDA and no
+    card is present). ``on_epoch``, when given, gets one dict a train
+    epoch: epoch, start_step, steps, clips, loss (the epoch's mean train
+    loss), train_s (host clock, the card synchronized at the end),
+    loader_wait_s (time the loop waited for the next batch), test_loss."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    builders.check_model_dtype(cfg.model.get("dtype"), dev)
+    seed = int(cfg.get("seed", 0))
+    model_dir = os.path.join(cfg.model["model_dir"], cfg.model["name"])
+    logger = Logger(path=os.path.join(model_dir, "train.log"), quiet=bool(cfg.get("quiet")))
+    tb = TensorBoardWriter(os.path.join(model_dir, "tb"), enabled=bool(cfg.get("log2tb", False)))
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    logger.add_line(f"device={dev} ({card}) seed={seed}")
+    logger.log_config(cfg)
+    os.makedirs(model_dir, exist_ok=True)
+    # the resolved config, read back by the export tooling
+    config_lib.dump(cfg, os.path.join(model_dir, "config.yaml"))
+
+    db_cfg = cfg.dataset
+    if debug:
+        db_cfg = Config(dict(db_cfg))
+        db_cfg["batch_size"] = max(2, 4)  # the JAX loop's max(2 * devices, 4)
+
+    # --- data -------------------------------------------------------------
+    train_ds = builders.build_dataset(db_cfg, db_cfg.train, mode="clip")
+    num_workers = 1 if debug else int(cfg.get("num_workers", 4))
+    loader_kind = str(cfg.get("loader", "threaded"))
+    loader = builders.build_dataloader(train_ds, db_cfg, db_cfg.train,
+                                       num_workers=num_workers, seed=seed, kind=loader_kind)
+    test_loader = None
+    if not cfg.get("no_test", False) and "test" in db_cfg:
+        try:
+            test_ds = builders.build_dataset(db_cfg, db_cfg.test, mode="clip")
+            test_loader = builders.build_dataloader(
+                test_ds, db_cfg, db_cfg.test, num_workers=num_workers, seed=seed,
+                kind=loader_kind)
+        except (FileNotFoundError, ValueError) as e:
+            # missing split files OR a split too small for one batch: the
+            # test phase is optional either way
+            logger.add_line(f"no usable test split ({e}); skipping test phases")
+    logger.add_line(f"train dataset: {train_ds.name} n={train_ds.num_samples} "
+                    f"batches/epoch={len(loader)}")
+
+    # --- model / criterion / optimizer / state ------------------------------
+    num_data = int(cfg.loss.get("args", {}).get("num_data", train_ds.num_samples))
+    if num_data != train_ds.num_samples:
+        logger.add_line(f"note: loss.num_data={num_data} != dataset size "
+                        f"{train_ds.num_samples}; using dataset size")
+    pcfg = builders.pretrain_config(cfg, num_data=train_ds.num_samples)
+    state, train_step = builders.build_pretrain(pcfg, dev)
+    logger.add_line(parameter_description(state.model))
+    epochs = 2 if debug else int(cfg.optimizer["num_epochs"])
+    milestones = set(int(m) for m in cfg.optimizer["lr"].get("milestones", []))
+    tracer = StepWindowTracer(cfg.get("profile_steps"), os.path.join(model_dir, "profile"), dev)
+
+    ckpt = CheckpointManager(os.path.join(model_dir, "checkpoints"))
+    resuming = bool(cfg.get("resume")) and ckpt.latest_step() is not None
+    position = {"epoch": 0, "batch": 0}
+    if resuming:
+        position = ckpt.restore(state)
+        logger.add_line(f"resumed from step {state.step} (epoch {state.epoch}, "
+                        f"batch {position['batch']})")
+    else:
+        # warm start from a reference-layout .pth.tar (the AVID-CMA configs
+        # point model.args.checkpoint at the AVID pretrain checkpoint)
+        model_ck = cfg.model.get("args", {}).get("checkpoint")
+        if model_ck and os.path.isfile(model_ck):
+            state.model.load_state_dict(import_model_pth_tar(model_ck), strict=True)
+            logger.add_line(f"warm-started model from {model_ck}")
+        elif model_ck:
+            logger.add_line(f"model.args.checkpoint {model_ck} not found; random weights")
+        bank_ck = cfg.loss.get("args", {}).get("checkpoint")
+        if bank_ck and os.path.isfile(bank_ck):
+            bank = import_criterion_pth_tar(bank_ck, dev)
+            if bank.view1_mem.shape != state.bank.view1_mem.shape:
+                raise ValueError(f"checkpoint banks {tuple(bank.view1_mem.shape)} != "
+                                 f"{tuple(state.bank.view1_mem.shape)} of this run")
+            state.bank = bank
+            logger.add_line(f"restored banks from {bank_ck} (z={float(bank.z):.4f})")
+
+    eval_step = None
+    start_epoch = state.epoch
+    print_freq = int(cfg.get("print_freq", 100))
+    save_freq_steps = int(cfg.get("save_freq_steps", 0))
+    test_freq = int(cfg.get("test_freq", 1))
+    for epoch in range(start_epoch, epochs):
+        loader.set_epoch(epoch)
+        state.epoch = epoch
+        meters = {
+            "loss": AverageMeter("Loss", ":.4e"),
+            "batch_t": AverageMeter("Time", ":.3f", window_size=100),
+            "data_t": AverageMeter("Data", ":.3f", window_size=100),
+        }
+        progress = ProgressMeter(len(loader), meters.values(), phase="pretrain",
+                                 epoch=epoch, logger=logger)
+        # mid-epoch resume: skip, at the index level, the batches the
+        # checkpoint had trained (the sampler repeats an epoch's order).
+        # Not in debug mode: debug shrinks the batch, so the position no
+        # longer matches the run being resumed.
+        start_it = 0
+        if resuming and not debug and epoch == start_epoch and position["epoch"] == epoch:
+            start_it = int(position["batch"])
+            if start_it:
+                logger.add_line(f"mid-epoch resume: skipping {start_it} already-trained "
+                                f"batches of epoch {epoch}")
+                loader.set_start_batch(start_it)
+        pending = []  # (loss on the device, clips) until the next drain
+
+        def drain_losses():
+            # ONE device->host copy for the whole pending window
+            if not pending:
+                return
+            vals = torch.stack([v for v, _ in pending]).tolist()
+            for v, (_, n) in zip(vals, pending):
+                meters["loss"].update(v, n=n)
+            pending.clear()
+
+        clips = steps = 0
+        wait_s = 0.0
+        start_step = state.step
+        t_epoch = t0 = time.perf_counter()
+        batches = device_prefetch(loader, dev)
+        for it in range(start_it, len(loader) + 1):
+            t_wait = time.perf_counter()
+            batch = next(batches, None)
+            wait_s += time.perf_counter() - t_wait
+            if batch is None:
+                break
+            meters["data_t"].update(time.perf_counter() - t0)
+            tracer.before_step(state.step)
+            metrics = train_step(state, batch, state.step)
+            n = int(batch["index"].shape[0])
+            pending.append((metrics["loss"], n))
+            clips, steps = clips + n, steps + 1
+            if tracer.after_step(state.step):
+                logger.add_line(f"profiler: trace written to {tracer.path}")
+            if save_freq_steps and state.step % save_freq_steps == 0:
+                ckpt.save(state.step, state, {"epoch": epoch, "batch": it + 1})
+            if it % print_freq == 0 or it == len(loader) - 1:
+                drain_losses()  # sync point
+                meters["batch_t"].update(time.perf_counter() - t0)
+                progress.display(it)
+                names = list(metrics)
+                vals = torch.stack([metrics[k].float() for k in names]).tolist()
+                tb.add_scalars(dict(zip(names, vals)), state.step)
+            else:
+                meters["batch_t"].update(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        drain_losses()
+        _sync(dev)
+        train_s = time.perf_counter() - t_epoch
+
+        state.scheduler.step()  # MultiStepLR: once an epoch
+        state.epoch = epoch + 1
+        ckpt.save(state.step, state, {"epoch": epoch + 1, "batch": 0},
+                  milestone=(epoch + 1) in milestones)
+        logger.add_line(f"epoch {epoch} done; checkpoint @ step {state.step}; "
+                        f"{clips} clips in {train_s:.3f} s, loader wait {wait_s:.3f} s")
+
+        # held-out criterion loss (reference: run_phase 'test' every
+        # test_freq epochs AND on the final epoch, main-avid.py:132-137)
+        test_loss = None
+        if test_loader is not None and (epoch % max(test_freq, 1) == 0 or epoch == epochs - 1):
+            if eval_step is None:
+                eval_step = make_fused_eval_step(pcfg.criterion(state.model.out_dim),
+                                                 pcfg.preprocess(), pcfg.seed)
+            test_loader.set_epoch(epoch)
+            losses = []
+            for it, batch in enumerate(device_prefetch(test_loader, dev)):
+                losses.append(eval_step(state, batch, it)["loss"])
+                if debug and it >= 1:
+                    break
+            if losses:
+                test_loss = float(torch.stack(losses).mean())  # one sync point
+                logger.add_line(f"test[{epoch}] loss {test_loss:.4e}")
+                tb.add_scalar("test/loss", test_loss, state.step)
+        if on_epoch is not None:
+            on_epoch({"epoch": epoch, "start_step": start_step, "steps": steps, "clips": clips,
+                      "loss": meters["loss"].avg, "train_s": train_s,
+                      "loader_wait_s": wait_s, "test_loss": test_loss})
+
+    if tracer.active:  # the window's end lies beyond the run's last step
+        tracer.close()
+        logger.add_line(f"profiler: trace written to {tracer.path} (run ended inside the window)")
+    tb.close()
+    logger.close()
+    return state

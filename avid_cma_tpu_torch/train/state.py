@@ -2,8 +2,9 @@
 
 Where the JAX package threads one immutable pytree through a jitted step,
 the port keeps the same pieces in one mutable object: the model (params
-and BN running stats), the optimizer and its schedule, the banks, and the
-generator every random draw of a step comes from.
+and BN running stats), the optimizer and its schedule, the banks, the
+generator every random draw of a step comes from, and the global step
+and epoch the loop has reached.
 """
 
 from __future__ import annotations
@@ -23,3 +24,4 @@ class TrainState:
     bank: BankState
     generator: torch.Generator
     step: int = 0
+    epoch: int = 0

@@ -34,7 +34,23 @@
    reproducible losses per batch index, and the launches of each kernel
    (K5 on the 13 stride-1 pairs of every forward); prints K5's device ms
    per eval step and the step's device-busy ms (torch.profiler);
-6. prints one JSON line per check, a summary line per slice, the
+6. runs one ``crop+color`` train preprocessing of the train slice's raw
+   frames with the jitter in a random per-clip order (non-identity
+   permutations) on the card (f32, and bf16 as the train path runs it)
+   and on the CPU (f32) from the same draws, and holds them together;
+7. drives the pretraining entry point, ``run_pretraining``, from
+   ``configs/main/avid/kinetics/Cross-N1024.yaml`` at full width through
+   the port's synthetic data layer, the threaded loader and the device
+   prefetch (160 clips, 32 a step, one clip per video: 5 train steps and 5
+   test steps through K5 an epoch), then again with ``resume=true`` and two
+   epochs: checks finite losses, the resume at epoch 1, step 5, the end at
+   step 10, unit-norm bank rows in the checkpoint, a ``.pth.tar`` export and
+   import that give back the same bits, and each kernel's launches over the
+   two runs (counters reset just before the first); prints train clips/s
+   per epoch, the loader-wait share, the device's idle share over the
+   second run's traced steps (the loop's ``profile_steps`` window), the
+   peak memory and the launches;
+8. prints one JSON line per check, a summary line per slice, the
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 
 Every phase raises on failure; nothing is caught. Without a CUDA card the
@@ -43,21 +59,26 @@ script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from avid_cma_tpu_torch import config as config_lib
 from avid_cma_tpu_torch.criterions.avid import AVIDConfig, BankState
 from avid_cma_tpu_torch.data.pipelines import preprocess_batch
 from avid_cma_tpu_torch.device import set_full_f32_precision
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
 from avid_cma_tpu_torch.models.blocks import BatchNorm
-from avid_cma_tpu_torch.ops import stft
+from avid_cma_tpu_torch.ops import stft, video_aug
 from avid_cma_tpu_torch.ops.kernels import (
     _lib,
     nce_gather,
@@ -71,6 +92,14 @@ from avid_cma_tpu_torch.train.builders import (
     build_pretrain,
     kinetics_cross_n1024,
 )
+from avid_cma_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    export_pth_tar,
+    import_criterion_pth_tar,
+    import_model_pth_tar,
+    import_optimizer_pth_tar,
+)
+from avid_cma_tpu_torch.train.loop import run_pretraining
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
 from avid_cma_tpu_torch.train.step import make_embed_fn, make_train_step
@@ -125,6 +154,30 @@ EXPECTED_EVAL_LAUNCHES = {"spectrogram": 5, "stem_pool_fwd": 5, "stem_pool_bwd":
                           "nce_gather": 20, "r2p1d_pair": 65}
 EXPECTED_EMBED_LAUNCHES = {"spectrogram": 0, "stem_pool_fwd": 1, "stem_pool_bwd": 0,
                            "nce_gather": 0, "r2p1d_pair": 13}
+# the loop phase: Cross-N1024 from its YAML on the synthetic data layer. One
+# clip per video (the recipe takes 10), so 160 clips give 5 steps of 32.
+REPO = os.path.dirname(os.path.abspath(__file__))
+LOOP_CONFIG = os.path.join(REPO, "configs/main/avid/kinetics/Cross-N1024.yaml")
+LOOP_OVERRIDES = ["dataset.backend=synthetic", "dataset.synthetic_size=160",
+                  "dataset.batch_size=32", "dataset.train.clips_per_video=1",
+                  "optimizer.num_epochs=1", "log2tb=false", "num_workers=4"]
+LOOP_STEPS = 5  # train steps an epoch, and test steps an epoch
+# two runs of one epoch each: per train step one spectrogram, one stem pool
+# forward and backward, 4 score launches; per test step one spectrogram,
+# one stem pool forward, 4 score launches and K5 on the 13 stride-1 pairs
+EXPECTED_LOOP_LAUNCHES = {"spectrogram": 4 * LOOP_STEPS, "stem_pool_fwd": 4 * LOOP_STEPS,
+                          "stem_pool_bwd": 2 * LOOP_STEPS, "nce_gather": 16 * LOOP_STEPS,
+                          "r2p1d_pair": 26 * LOOP_STEPS}
+# crop+color against the CPU's f32 from the same draws. In f32 the card
+# differs only in summation order: 1e-4, the CPU parity gate. In bf16 the
+# hue op sets the bound: h * 6 rounds to 2^-5 in [4, 6), so a channel moves
+# by up to v * s * 2^-6 = 0.016, and with h's own rounding (6 * 2^-9) and
+# the shift's about 0.04 in [0, 1]; in a random order up to three ops
+# follow the hue and each scales a deviation by up to 1.4 (2.74 in all):
+# 0.11, or 0.49 after the ImageNet std (0.225), plus the resize's and the
+# other ops' roundings (about 0.002 each in [0, 1]): 0.6. The mean stays
+# near the resize's one-level rounding, 1/255/0.225 = 0.017.
+CROP_COLOR_TOL = {"f32_max_abs": 1e-4, "bf16_max_abs": 0.6, "bf16_mean_abs": 0.02}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -583,6 +636,173 @@ def run_eval_slice() -> dict:
     }
 
 
+def check_crop_color() -> dict:
+    """One crop+color train preprocessing of the train slice's raw frames,
+    the jitter in a random per-clip order, on the card (in f32, then in
+    bf16, the card's dtype) and on the CPU (f32) from the same draws
+    (drawn on the CPU)."""
+    cfg = kinetics_cross_n1024()
+    b, t = cfg.batch_size, cfg.num_frames
+    rng = np.random.default_rng(6)
+    frames = torch.from_numpy(rng.integers(0, 255, (b, t, *RAW_HW, 3), dtype=np.uint8))
+    gen = torch.Generator().manual_seed(6)
+    crop, resize = cfg.crop_size, (256, 256)
+    top = torch.randint(0, resize[0] - crop + 1, (b,), generator=gen)
+    left = torch.randint(0, resize[1] - crop + 1, (b,), generator=gen)
+    u = torch.rand((b, 5), generator=gen)
+    perm = torch.argsort(torch.rand((b, 4), generator=gen), dim=1)
+    non_identity = int((perm != torch.arange(4)).any(dim=1).sum())
+    require(non_identity >= b // 2, f"only {non_identity} non-identity jitter orders")
+    args = (top, left, u[:, 0] < 0.5, u[:, 1:], perm)
+    ref = video_aug.crop_augment_clips_train(frames, *args, crop, resize, dtype=torch.float32)
+    frames_cuda, cuda_args = frames.cuda(), [a.cuda() for a in args]
+
+    def on_card(dtype, canonical=False):
+        # canonical: the same draws with the jitter in its fixed order (a
+        # timing reference for the random order's cost)
+        a = cuda_args[:-1] + [None] if canonical else cuda_args
+        return video_aug.crop_augment_clips_train(frames_cuda, *a, crop, resize, dtype=dtype)
+
+    f32_err = float((on_card(torch.float32).cpu() - ref).abs().max())
+    diff = (on_card(torch.bfloat16).float().cpu() - ref).abs()
+    line = {"name": "crop+color train preprocessing, random jitter order, card vs CPU (f32)",
+            "shape": list(ref.shape), "f32_max_abs_err": f32_err,
+            "bf16_max_abs_err": float(diff.max()), "bf16_mean_abs_err": float(diff.mean()),
+            "tol": CROP_COLOR_TOL, "non_identity_orders": non_identity,
+            "card_bf16_ms": time_ms(lambda: on_card(torch.bfloat16), 5),
+            "card_bf16_canonical_order_ms": time_ms(lambda: on_card(torch.bfloat16, True), 5)}
+    print(json.dumps(line), flush=True)
+    require(ref.shape == (b, t, crop, crop, 3), f"crop+color shape {tuple(ref.shape)}")
+    require(f32_err <= CROP_COLOR_TOL["f32_max_abs"],
+            f"crop+color in f32: card and CPU disagree ({f32_err})")
+    require(line["bf16_max_abs_err"] <= CROP_COLOR_TOL["bf16_max_abs"]
+            and line["bf16_mean_abs_err"] <= CROP_COLOR_TOL["bf16_mean_abs"],
+            f"crop+color in bf16: card and CPU disagree ({line['bf16_max_abs_err']}, "
+            f"{line['bf16_mean_abs_err']})")
+    return line
+
+
+def trace_device_share(path: str) -> dict:
+    """Device busy time and the device's idle share over a
+    ``torch.profiler`` chrome trace: the union of the kernel, memcpy and
+    memset intervals against the span of every interval in the trace."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    require(bool(events), f"empty trace {path}")
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    require(bool(dev), f"no device activity in the trace {path}")
+    busy, end = 0.0, -1.0
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = max(float(e["ts"]) + float(e["dur"]) for e in events) - min(
+        float(e["ts"]) for e in events)
+    return {"trace_span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / span, "kernels": sum(
+                1 for e in events if e.get("cat") == "kernel")}
+
+
+def _loop_config(model_dir: str, extra=()) -> config_lib.Config:
+    return config_lib.load(LOOP_CONFIG, LOOP_OVERRIDES + [f"model.model_dir={model_dir}",
+                                                          *extra])
+
+
+def run_loop() -> dict:
+    """The pretraining entry point from the YAML: one epoch, then a resume
+    for a second; the checkpoint, the .pth.tar round trip and the
+    launches of each kernel over both runs."""
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    # the loop's log (config, parameter table, progress) goes to a file, so
+    # that this script's output stays one line a check; its tail is printed
+    # to stderr at the end, whatever happened
+    log_path = os.path.join(model_dir, "stdout.log")
+    try:
+        records = []
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            torch.cuda.reset_peak_memory_stats()
+            _lib.reset_launches()
+            first = run_pretraining(_loop_config(model_dir), device="cuda",
+                                    on_epoch=records.append)
+            require((first.step, first.epoch) == (LOOP_STEPS, 1),
+                    f"first run ended at step {first.step}, epoch {first.epoch}")
+            del first
+            # the second run traces its epoch's steps (the loop's
+            # profile_steps window) for the device's idle share
+            second = run_pretraining(
+                _loop_config(model_dir, ["resume=true", "optimizer.num_epochs=2",
+                                         f"profile_steps=[{LOOP_STEPS},{2 * LOOP_STEPS}]"]),
+                device="cuda", on_epoch=records.append)
+            torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        require([(r["epoch"], r["start_step"], r["steps"]) for r in records]
+                == [(0, 0, LOOP_STEPS), (1, LOOP_STEPS, LOOP_STEPS)],
+                f"epochs run {[(r['epoch'], r['start_step'], r['steps']) for r in records]}")
+        require(second.step == 2 * LOOP_STEPS and second.epoch == 2,
+                f"second run ended at step {second.step}, epoch {second.epoch}")
+        losses = [v for r in records for v in (r["loss"], r["test_loss"])]
+        require(all(v is not None and np.isfinite(v) for v in losses), f"losses {losses}")
+        require(launches == EXPECTED_LOOP_LAUNCHES,
+                f"kernel launches of the loop {launches}, expected {EXPECTED_LOOP_LAUNCHES}")
+
+        trace = os.path.join(model_dir, "Cross-N1024", "profile",
+                             f"trace_steps_{LOOP_STEPS}_{2 * LOOP_STEPS}.json")
+        require(os.path.isfile(trace), "the loop wrote no profiler trace")
+        share = trace_device_share(trace)
+        ckdir = os.path.join(model_dir, "Cross-N1024", "checkpoints")
+        mgr = CheckpointManager(ckdir)
+        require(mgr.latest_step() == 2 * LOOP_STEPS, f"latest checkpoint {mgr.latest_step()}")
+        saved = torch.load(mgr.path(mgr.latest_step()), map_location="cpu", weights_only=False)
+        for key in ("view1_mem", "view2_mem"):
+            mem = getattr(second.bank, key)
+            bank = saved["bank"][key]
+            require(torch.equal(bank, mem.cpu()), f"checkpoint {key} differs from the state")
+            norms = torch.linalg.vector_norm(bank, dim=1)
+            require(float((norms - 1).abs().max()) < 1e-5, f"checkpoint {key} rows not unit norm")
+        require(float(saved["bank"]["z"]) > 0, "checkpoint Z not frozen")
+
+        # .pth.tar export of the final state, then each import: the same bits
+        path = os.path.join(model_dir, "export.pth.tar")
+        export_pth_tar(path, second.model, bank=second.bank, epoch=second.epoch,
+                       optimizer=second.optimizer)
+        model_sd = import_model_pth_tar(path)
+        own = second.model.state_dict()
+        require(sorted(model_sd) == sorted(own) and all(
+            torch.equal(model_sd[k], own[k].cpu()) for k in own), "model round trip differs")
+        bank = import_criterion_pth_tar(path, "cuda")
+        require(torch.equal(bank.view1_mem, second.bank.view1_mem)
+                and torch.equal(bank.view2_mem, second.bank.view2_mem)
+                and torch.equal(bank.z, second.bank.z), "bank round trip differs")
+        fresh = torch.optim.Adam(second.model.parameters(), lr=1.0)
+        import_optimizer_pth_tar(path, second.model, fresh)
+        for p in second.model.parameters():
+            a, b = fresh.state[p], second.optimizer.state[p]
+            require(all(torch.equal(a[k].to(b[k].device), b[k])
+                        for k in ("step", "exp_avg", "exp_avg_sq")), "Adam round trip differs")
+        return {
+            "clips_per_sec_per_epoch": [r["clips"] / r["train_s"] for r in records],
+            "loader_wait_share_per_epoch": [r["loader_wait_s"] / r["train_s"] for r in records],
+            "train_s_per_epoch": [r["train_s"] for r in records],
+            "train_loss_per_epoch": [r["loss"] for r in records],
+            "test_loss_per_epoch": [r["test_loss"] for r in records],
+            "resumed_at": {"epoch": records[1]["epoch"], "step": records[1]["start_step"]},
+            "final_step": second.step, "peak_mem_gib": peak, "launches": launches,
+            "traced_steps": [LOOP_STEPS, 2 * LOOP_STEPS], **share,
+            "pth_tar_round_trip": "bit-exact",
+        }
+    finally:
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                tail = [ln for ln in f.read().splitlines() if "|" not in ln][-30:]
+            print("\n".join(["== run_pretraining log (tail, no parameter table)"] + tail),
+                  file=sys.stderr)
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -616,10 +836,19 @@ def main() -> None:
     ev = run_eval_slice()
     print(json.dumps({"card": smi, "config": "Cross-N1024 eval (forward only) "
                       "R2Plus1D-18+Conv2D-10 b32 8x224^2 from 240x320", **ev}), flush=True)
+    torch.cuda.empty_cache()
+    cc = check_crop_color()
+    print(json.dumps({"card": smi, "config": "crop+color train preprocessing b32 8x224^2 "
+                      "from 256x320, random jitter order", **cc}), flush=True)
+    torch.cuda.empty_cache()
+    loop = run_loop()
+    print(json.dumps({"card": smi, "config": "run_pretraining Cross-N1024.yaml "
+                      "R2Plus1D-18+Conv2D-10 b32 8x224^2, synthetic 160 clips from 256x342, "
+                      "threaded loader x4, 1 epoch + resume to 2", **loop}), flush=True)
 
-    # each kernel's launches on its path: K1-K4 on the train step, K5 on the
-    # eval step (the train step runs no K5)
-    launches = {**run["launches"], "r2p1d_pair": ev["launches"]["r2p1d_pair"]}
+    # each kernel's launches on the main path: the pretraining entry point's
+    # two runs (train steps run K1-K4, its test phases K1, K2, K4 and K5)
+    launches = loop["launches"]
     kernels = []
     for key, meta in KERNELS.items():
         r = results[key]

@@ -1,0 +1,18 @@
+#!/usr/bin/env python
+"""AVID pretraining on one NVIDIA card: the PyTorch/CUDA port's entry point.
+
+Usage (the arguments of main_avid.py, plus --device):
+    python main_avid_torch.py configs/main/avid/kinetics/Cross-N1024.yaml
+    python main_avid_torch.py <cfg.yaml> --debug --set dataset.backend=synthetic
+    python main_avid_torch.py configs/smoke/avid-synthetic.yaml --debug --device cpu
+
+Runs on the card by default and raises when none is present; --device cpu
+runs the plain PyTorch versions of the kernels. Checkpoints go to
+<model.model_dir>/<model.name>/checkpoints; --set resume=true resumes from
+the latest one.
+"""
+
+from avid_cma_tpu_torch.cli import pretrain_main
+
+if __name__ == "__main__":
+    pretrain_main()

@@ -451,3 +451,24 @@ def test_eval_block_activation_feeds_k5_without_a_copy(dev, monkeypatch):
     assert _lib.LAUNCHES["r2p1d_pair"] == before + 2
     assert seen[0] == (x.data_ptr(), True) and seen[1][1]
     assert out.permute(0, 2, 3, 4, 1).is_contiguous()
+
+
+def test_device_prefetch_orders_the_kernels_after_the_copy(dev):
+    """Batches prefetched on the side stream arrive whole on the card, and
+    a kernel launched on the current stream (K1, whose ctypes launch takes
+    ``_lib.stream()``, the current stream) reads the copied batch: its
+    result equals the plain version on the host batch."""
+    from avid_cma_tpu_torch.data.prefetch import device_prefetch
+
+    assert _lib.stream() == torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(12)
+    host = [{"audio": (0.1 * rng.standard_normal((4, 24000)) + 0.05).astype(np.float32),
+             "frames": rng.integers(0, 256, (4, 2, 64, 80, 3), dtype=np.uint8)}
+            for _ in range(5)]
+    kw = dict(sample_rate=24000, n_fft=512, hop_size=0.01, duration=1.0)
+    for b, src in zip(device_prefetch(iter(host), dev, depth=2), host):
+        assert b["audio"].is_cuda and b["frames"].dtype == torch.uint8
+        got = spectrogram.log_spectrogram_kernel(b["audio"], **kw)
+        ref = stft.log_spectrogram(torch.from_numpy(src["audio"]), **kw)
+        assert float((got.cpu() - ref).abs().max()) < 1e-4
+        assert torch.equal(b["frames"].cpu(), torch.from_numpy(src["frames"]))

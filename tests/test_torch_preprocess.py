@@ -3,8 +3,9 @@ data/pipelines.py) against the JAX ops fed the same random draws: the
 uniform numbers JAX draws from its keys are recomputed here and handed to
 the port. Crop boxes exactly; crop-resize (a crop larger than the output
 and one smaller), flip, jitter with given factors, normalize, the whole
-msc+color train path, and the volume gain within 1e-4 (f32, values in
-[0, 1] or normalized). Both eval paths (msc+color's short-side resize,
+msc+color train path, the crop+color train path, jitter in a random
+per-clip order (non-identity permutations), and the volume gain within
+1e-4 (f32, values in [0, 1] or normalized). Both eval paths (msc+color's short-side resize,
 crop+color's exact resize; each then a centre crop) on non-square raw
 frames, one case downscaling and one upscaling, and ``preprocess_batch``
 with ``train=False`` against the JAX one, within 1e-4."""
@@ -106,6 +107,83 @@ def test_train_path_matches_augment_clips_train():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL)
 
 
+def _perm_draws(key, n_ops=4):
+    return np.asarray(jax.random.permutation(jax.random.split(key, 5)[4], n_ops))
+
+
+@pytest.mark.parametrize("color", [(0.4, 0.4, 0.4, 0.2), (0.4, 0.0, 0.4, 0.2)],
+                         ids=["all-ops", "contrast-off"])
+def test_random_jitter_order_matches(color):
+    rng = np.random.default_rng(6)
+    clips = rng.uniform(size=(6, 2, 8, 8, 3)).astype(np.float32)
+    keys = jax.random.split(jax.random.key(11), 6)
+    u = np.stack([_jitter_draws(k) for k in keys])
+    active = [k for k, s in enumerate(color) if s > 0]
+    # JAX permutes the active ops; the port takes a permutation of the op
+    # ids 0-3 and passes over the skipped ones
+    perms, jax_perms = [], [list(_perm_draws(k, len(active))) for k in keys]
+    for p in jax_perms:
+        order = [active[i] for i in p]
+        perms.append(order + [k for k in range(4) if k not in order])
+    perm = torch.tensor(perms)
+    assert any(p != sorted(p) for p in jax_perms)
+    factors = port_aug.jitter_factors(torch.from_numpy(u), color)
+    got = port_aug.color_jitter(torch.from_numpy(clips), *factors, perm=perm)
+    ref = jax.jit(jax.vmap(lambda k, c: jax_aug.color_jitter_clip(k, c, *color, order="random")))(
+        keys, jnp.asarray(clips))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL)
+    canonical = port_aug.color_jitter(torch.from_numpy(clips), *factors)
+    assert not np.allclose(got.numpy(), canonical.numpy(), atol=TOL)
+
+
+@pytest.mark.parametrize("order", ["canonical", "random"])
+def test_crop_color_train_path_matches(order):
+    rng = np.random.default_rng(8)
+    frames = rng.integers(0, 256, (4, 2, 30, 40, 3)).astype(np.uint8)
+    key = jax.random.key(13)
+    resize, crop = (27, 32), 24
+    ref = jax.jit(lambda k, f: jax_aug.crop_augment_clips_train(
+        k, f, crop_size=crop, resize=resize, jitter_order=order))(key, jnp.asarray(frames))
+    tops, lefts, flips, jit_u, perms = [], [], [], [], []
+    for k in jax.random.split(key, 4):
+        k_top, k_left, k_flip, k_jit = jax.random.split(k, 4)
+        tops.append(int(jax.random.randint(k_top, (), 0, resize[0] - crop + 1)))
+        lefts.append(int(jax.random.randint(k_left, (), 0, resize[1] - crop + 1)))
+        flips.append(_u(k_flip) < 0.5)
+        jit_u.append(_jitter_draws(k_jit))
+        perms.append(_perm_draws(k_jit))
+    perm = torch.tensor(np.stack(perms)) if order == "random" else None
+    if perm is not None:
+        assert (perm != torch.arange(4)).any()
+    got = port_aug.crop_augment_clips_train(
+        torch.from_numpy(frames), torch.tensor(tops), torch.tensor(lefts),
+        torch.tensor(flips), torch.from_numpy(np.stack(jit_u)), perm, crop, resize)
+    assert got.shape == (4, 2, crop, crop, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL)
+
+
+def test_msc_color_train_path_random_order_matches():
+    rng = np.random.default_rng(9)
+    frames = rng.integers(0, 256, (4, 2, 40, 48, 3)).astype(np.uint8)
+    key = jax.random.key(17)
+    ref = jax.jit(lambda k, f: jax_aug.augment_clips_train(
+        k, f, crop_size=32, jitter_order="random"))(key, jnp.asarray(frames))
+    rows, perms = [], []
+    for k in jax.random.split(key, 4):
+        k_box, k_flip, k_jit = jax.random.split(k, 3)
+        area, ratio, top, left = _box_draws(k_box)
+        rows.append(np.concatenate([area, ratio, [top, left, _u(k_flip)],
+                                    _jitter_draws(k_jit)]))
+        perms.append(_perm_draws(k_jit))
+    perm = torch.tensor(np.stack(perms))
+    assert (perm != torch.arange(4)).any()
+    u = torch.from_numpy(np.stack(rows).astype(np.float32))
+    got = augment_clips_train(torch.from_numpy(frames), u,
+                              PreprocessConfig(crop_size=32, jitter_order="random"),
+                              torch.float32, perm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL)
+
+
 def test_volume_gain_matches():
     k_vol = jax.random.split(jax.random.key(9))[1]
     ref = jax.random.uniform(k_vol, (4, 1), minval=0.9, maxval=1.1)
@@ -148,8 +226,20 @@ def test_preprocess_batch_eval_matches(transform):
 
 
 def test_config_raises_only_for_what_is_not_ported():
-    PreprocessConfig(transform="crop+color")
     with pytest.raises(ValueError, match="unknown transform"):
         PreprocessConfig(transform="msc")
-    with pytest.raises(NotImplementedError, match="train path"):
-        preprocess_batch({}, PreprocessConfig(transform="crop+color"), train=True)
+    with pytest.raises(ValueError, match="jitter order"):
+        PreprocessConfig(jitter_order="shuffled")
+    # every transform and jitter order has a train path: each draws from
+    # the generator and is reproducible from its seed
+    frames = torch.from_numpy(
+        np.random.default_rng(7).integers(0, 256, (2, 2, 30, 40, 3)).astype(np.uint8))
+    for transform in ("msc+color", "crop+color"):
+        for order in ("canonical", "random"):
+            cfg = PreprocessConfig(transform=transform, crop_size=24, resize=(27, 32),
+                                   jitter_order=order)
+            a, b = (preprocess_batch({"frames": frames}, cfg,
+                                     torch.Generator().manual_seed(1))["frames"]
+                    for _ in range(2))
+            assert a.shape == (2, 2, 24, 24, 3)
+            torch.testing.assert_close(a, b, rtol=0, atol=0)

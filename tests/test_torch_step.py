@@ -26,6 +26,8 @@ import dataclasses
 import math
 import os
 import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -217,7 +219,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
             script.main()
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avid_cma_tpu")
+# the card host has none of these: the port, its entry script and
+# chip_smoke.py import none of them
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avid_cma_tpu", "yaml", "orbax", "tensorflow")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -231,9 +235,19 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((REPO / "avid_cma_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "avid_cma_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "main_avid_torch.py"]
     assert len(files) > 20
     for path in files:
         for name in _imported_roots(path):
             root = name.split(".")[0]
             assert root not in FORBIDDEN, f"{os.path.relpath(path, REPO)} imports {name}"
+    # optional packages are imported by the code that needs them, never
+    # when the port is imported (a fresh interpreter: this one may hold them)
+    probe = ("import sys, avid_cma_tpu_torch, avid_cma_tpu_torch.data, "
+             "avid_cma_tpu_torch.train.loop, avid_cma_tpu_torch.cli; "
+             "print(sorted(m for m in ('cv2', 'av', 'tensorboard', 'tensorflow', 'yaml', "
+             "'jax') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+                         text=True, check=True).stdout.strip()
+    assert out == "[]", f"importing the port loaded {out}"
