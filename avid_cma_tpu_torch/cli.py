@@ -13,7 +13,7 @@ from avid_cma_tpu_torch import config as config_lib
 
 def pretrain_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="AVID pretraining on one NVIDIA card (PyTorch/CUDA port)")
+        description="AVID and AVID-CMA pretraining on one NVIDIA card (PyTorch/CUDA port)")
     p.add_argument("cfg", help="YAML config (reference schema)")
     p.add_argument("--debug", action="store_true",
                    help="tiny batch, 1 worker, 2 epochs (reference --debug)")

@@ -85,7 +85,8 @@ def update_banks(state: BankState, video_emb: torch.Tensor,
                  audio_emb: torch.Tensor, y: torch.Tensor,
                  momentum: Tuple[float, float]) -> BankState:
     """EMA + renorm of the rows ``y`` into NEW bank tensors (the old ones
-    are left as they are). Duplicate indices resolve last-write-wins: every
+    are left as they are), in a state of ``state``'s type (a CMA state
+    keeps its positive set). Duplicate indices resolve last-write-wins: every
     duplicate writes the value of its last occurrence, so the order in
     which the scatter lands them does not matter (CUDA's ``index_put_``
     fixes no order among duplicates)."""
@@ -95,10 +96,10 @@ def update_banks(state: BankState, video_emb: torch.Tensor,
         new = l2_normalize(mem[y] * mom + emb.detach() * (1.0 - mom))
         return mem.clone().index_put_((y,), new[last])
 
-    return BankState(
+    return dataclasses.replace(
+        state,
         view1_mem=ema(state.view1_mem, video_emb, momentum[0]),
         view2_mem=ema(state.view2_mem, audio_emb, momentum[1]),
-        z=state.z,
     )
 
 

@@ -1,6 +1,7 @@
 """Where the time of one AVID pretraining step (or eval step) goes, on the card.
 
-    python -m avid_cma_tpu_torch.profile_step [--steps 3] [--top 25] [--out FILE] [--eval]
+    python -m avid_cma_tpu_torch.profile_step [--steps 3] [--top 25] [--out FILE]
+                                              [--eval | --cma]
 
 Builds the Kinetics Cross-N1024 slice at full width (as chip_smoke.py),
 warms it up, then
@@ -14,8 +15,10 @@ warms it up, then
      calls, K1's and K3's two passes, K5's 13 launches a forward).
 With ``--eval``, the forward-only slice instead (``build_eval``, raw
 240 x 320 frames as chip_smoke.py's eval slice): only the trace (2), of
-fused eval steps. Prints one JSON object; ``--out`` also writes it to a
-file. Needs a card.
+fused eval steps. With ``--cma``, the AVID-CMA train slice
+(``kinetics_cma()``, its positive set mined first; K4 launches 8 times a
+step). Prints one JSON object; ``--out`` also writes it to a file. Needs
+a card.
 """
 
 from __future__ import annotations
@@ -29,9 +32,16 @@ import time
 import numpy as np
 import torch
 
-from avid_cma_tpu_torch.criterions.avid import avid_forward
+from avid_cma_tpu_torch.criterions.avid_cma import cma_state_from_bank
+from avid_cma_tpu_torch.criterions.mining import mine_positives
 from avid_cma_tpu_torch.data.pipelines import preprocess_batch
-from avid_cma_tpu_torch.train.builders import build_eval, build_pretrain, kinetics_cross_n1024
+from avid_cma_tpu_torch.train.builders import (
+    build_eval,
+    build_pretrain,
+    kinetics_cma,
+    kinetics_cross_n1024,
+)
+from avid_cma_tpu_torch.train.step import criterion_fn
 
 OWN_KERNELS = {"stft_power_kernel": "K1", "db_clamp_norm_kernel": "K1",
                "stem_pool_fwd_kernel": "K2", "stem_pool_bwd_kernel": "K3",
@@ -57,6 +67,7 @@ def _raw_batch(cfg, rng, hw=(256, 320)):
 def phase_times(state, cfg, raw, steps: int) -> dict:
     """Mean device ms per phase, the calls of make_fused_train_step."""
     crit = cfg.criterion(state.model.out_dim)
+    criterion = criterion_fn(crit)
     pp = cfg.preprocess()
     names = ("preprocess", "forward", "criterion", "backward", "optimizer")
     totals = collections.Counter()
@@ -67,8 +78,8 @@ def phase_times(state, cfg, raw, steps: int) -> dict:
         ev[1].record()
         v, a = state.model(batch["frames"], batch["audio"])
         ev[2].record()
-        loss, _, bank = avid_forward(state.bank, v, a, batch["index"].long(), crit,
-                                     generator=state.generator)
+        loss, _, bank = criterion(state.bank, v, a, batch["index"].long(), crit,
+                                  generator=state.generator)
         ev[3].record()
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -133,15 +144,21 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--eval", action="store_true", help="profile the fused eval step")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--eval", action="store_true", help="profile the fused eval step")
+    mode.add_argument("--cma", action="store_true", help="profile the AVID-CMA train step")
     args = ap.parse_args()
-    cfg = kinetics_cross_n1024()
+    cfg = kinetics_cma() if args.cma else kinetics_cross_n1024()
     if args.eval:
         state, fused, _ = build_eval(cfg, device="cuda")
         raw = _raw_batch(cfg, np.random.default_rng(0), hw=(240, 320))
     else:
         state, fused = build_pretrain(cfg, device="cuda")
         raw = _raw_batch(cfg, np.random.default_rng(0))
+    if args.cma:
+        crit = cfg.criterion(state.model.out_dim)
+        state.bank = cma_state_from_bank(state.bank, mine_positives(
+            state.bank.view1_mem, state.bank.view2_mem, crit.pos_k, crit.sampling_type))
     for i in range(2):
         fused(state, raw, i)
     torch.cuda.synchronize()
@@ -152,7 +169,8 @@ def main() -> None:
         out = {"card": smi, "config": "Cross-N1024 eval (forward only) R2Plus1D-18+Conv2D-10 "
                "b32 8x224^2 from 240x320", **trace(state, fused, raw, args.steps, args.top)}
     else:
-        out = {"card": smi, "config": "Cross-N1024 R2Plus1D-18+Conv2D-10 b32 8x224^2",
+        name = "AVID-CMA InstX-N1024-PosW-N64-Top32" if args.cma else "Cross-N1024"
+        out = {"card": smi, "config": f"{name} R2Plus1D-18+Conv2D-10 b32 8x224^2",
                "phase_ms": phase_times(state, cfg, raw, args.steps),
                **trace(state, fused, raw, args.steps, args.top)}
     text = json.dumps(out, indent=1)

@@ -1,12 +1,13 @@
 """Clips/s of the Cross-N1024 fused train step on the card, in windows.
 
-    python -m avid_cma_tpu_torch.scripts.train_clips [--windows 3] [--steps 10]
+    python -m avid_cma_tpu_torch.scripts.train_clips [--windows 3] [--steps 10] [--cma]
 
 Builds the full-width slice as chip_smoke.py does (32 clips of raw
 256 x 320 uint8 frames, 2 s of audio), runs 3 warm-up steps, then
 ``--windows`` windows of ``--steps`` steps, each timed on the host clock
-around work that ends in a synchronize. Prints one JSON line with the
-card's name and power limit. Needs a card.
+around work that ends in a synchronize. With ``--cma``, the AVID-CMA
+slice (``kinetics_cma()``, its positive set mined first). Prints one JSON
+line with the card's name and power limit. Needs a card.
 
 To compare two trees on one card, run the script from each tree's root
 with ``PYTHONPATH`` set to that root, in turns (parent, change, change,
@@ -23,16 +24,23 @@ import time
 import numpy as np
 import torch
 
-from avid_cma_tpu_torch.train.builders import build_pretrain, kinetics_cross_n1024
+from avid_cma_tpu_torch.criterions.avid_cma import cma_state_from_bank
+from avid_cma_tpu_torch.criterions.mining import mine_positives
+from avid_cma_tpu_torch.train.builders import build_pretrain, kinetics_cma, kinetics_cross_n1024
 
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--windows", type=int, default=3)
     p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--cma", action="store_true", help="the AVID-CMA train step")
     args = p.parse_args()
-    cfg = kinetics_cross_n1024()
+    cfg = kinetics_cma() if args.cma else kinetics_cross_n1024()
     state, fused = build_pretrain(cfg, device="cuda")
+    if args.cma:
+        crit = cfg.criterion(state.model.out_dim)
+        state.bank = cma_state_from_bank(state.bank, mine_positives(
+            state.bank.view1_mem, state.bank.view2_mem, crit.pos_k, crit.sampling_type))
     rng = np.random.default_rng(0)
     b = cfg.batch_size
     raw = {
@@ -58,8 +66,9 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    name = "AVID-CMA InstX-N1024-PosW-N64-Top32" if args.cma else "Cross-N1024"
     print(json.dumps({"metric": "train_clips_per_sec", "card": card,
-                      "config": "Cross-N1024 R2Plus1D-18+Conv2D-10 b32 8x224^2",
+                      "config": f"{name} R2Plus1D-18+Conv2D-10 b32 8x224^2",
                       "steps_per_window": args.steps, "clips_per_sec": clips_per_sec}))
 
 

@@ -1,9 +1,11 @@
 """Config-driven builders (counterpart of avid_cma_tpu/train/builders.py).
 
 ``pretrain_config(cfg)`` turns a loaded YAML ``Config`` into the frozen
-``PretrainConfig`` the step builders take; ``kinetics_cross_n1024()`` is
-the published Kinetics recipe ``configs/main/avid/kinetics/Cross-N1024.yaml``
-written out as one (a CPU test holds the two together).
+``PretrainConfig`` the step builders take; ``kinetics_cross_n1024()`` and
+``kinetics_cma()`` are the published Kinetics recipes
+``configs/main/avid/kinetics/Cross-N1024.yaml`` and
+``configs/main/avid-cma/kinetics/InstX-N1024-PosW-N64-Top32.yaml`` written
+out as ones (CPU tests hold them to their YAML).
 ``build_pretrain`` wires model, optimizer, banks and the fused step on a
 device; ``build_eval`` the same state with the fused eval-loss step and
 the embed fn. ``build_preprocess_config``, ``build_dataset`` and
@@ -14,13 +16,14 @@ layer.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
 import avid_cma_tpu_torch.data  # noqa: F401  (registers the datasets)
 from avid_cma_tpu_torch.config import Config
 from avid_cma_tpu_torch.criterions.avid import AVIDConfig
+from avid_cma_tpu_torch.criterions.avid_cma import AVIDCMAConfig
 from avid_cma_tpu_torch.data.loader import CachedDataLoader, DataLoader, MultiprocessDataLoader
 from avid_cma_tpu_torch.data.pipelines import PreprocessConfig
 from avid_cma_tpu_torch.registry import DATASETS
@@ -34,6 +37,8 @@ from avid_cma_tpu_torch.train.step import (
     make_fused_eval_step,
     make_fused_train_step,
 )
+
+LOSSES = ("AVID", "AVID_CMA")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +67,23 @@ class PretrainConfig:
     video_depth: int
     audio_backbone: str
     audio_depth: int
-    # loss
+    # loss: AVID or AVID_CMA
+    loss: str = "AVID"
     num_data: int = 232067
     num_negatives: int = 1024
     momentum: float = 0.5
     xModal_coeff: float = 1.0
     wModal_coeff: float = 0.0
+    # AVID-CMA only: the four heads' coefficients and the mining
+    num_negatives_within: Optional[int] = 64
+    xModalInstCoeff: float = 1.0
+    wModalInstCoeff: float = 0.0
+    xModalPosCoeff: float = 0.0
+    wModalPosCoeff: float = 1.0
+    pos_k: int = 32
+    sampling_type: str = "consensus"
+    mining_exact: bool = True
+    resample_freq: int = -1
     # video augmentation (PreprocessConfig's defaults)
     min_area: float = 0.08
     color: Tuple[float, float, float, float] = (0.4, 0.4, 0.4, 0.2)
@@ -92,7 +108,16 @@ class PretrainConfig:
             spectrogram_fps=self.spectrogram_fps,
             audio_clip_duration=self.audio_clip_duration)
 
-    def criterion(self, embedding_dim: int) -> AVIDConfig:
+    def criterion(self, embedding_dim: int) -> Union[AVIDConfig, AVIDCMAConfig]:
+        if self.loss == "AVID_CMA":
+            return AVIDCMAConfig(
+                num_data=self.num_data, embedding_dim=embedding_dim,
+                num_negatives=self.num_negatives,
+                num_negatives_within=self.num_negatives_within, momentum=self.momentum,
+                xModalInstCoeff=self.xModalInstCoeff, wModalInstCoeff=self.wModalInstCoeff,
+                xModalPosCoeff=self.xModalPosCoeff, wModalPosCoeff=self.wModalPosCoeff,
+                pos_k=self.pos_k, sampling_type=self.sampling_type,
+                mining_exact=self.mining_exact, resample_freq=self.resample_freq)
         return AVIDConfig(
             num_data=self.num_data, embedding_dim=embedding_dim,
             num_negatives=self.num_negatives, momentum=self.momentum,
@@ -117,6 +142,19 @@ def kinetics_cross_n1024() -> PretrainConfig:
         num_data=232067, num_negatives=1024, momentum=0.5,
         xModal_coeff=1.0, wModal_coeff=0.0,
     )
+
+
+def kinetics_cma() -> PretrainConfig:
+    """configs/main/avid-cma/kinetics/InstX-N1024-PosW-N64-Top32.yaml: the
+    Cross-N1024 model, data and optimizer (32 clips per chip), 20 epochs
+    with milestones 5, 10, 15, and the AVID-CMA loss: cross-modal instance
+    discrimination plus within-modal positives, 1024 negatives (64 within),
+    the top-32 consensus positives re-mined every 5 epochs."""
+    return dataclasses.replace(
+        kinetics_cross_n1024(), milestones=(5, 10, 15), loss="AVID_CMA",
+        num_negatives_within=64, xModalInstCoeff=1.0, wModalInstCoeff=0.0,
+        xModalPosCoeff=0.0, wModalPosCoeff=1.0, pos_k=32, sampling_type="consensus",
+        mining_exact=True, resample_freq=5)
 
 
 def check_model_dtype(spec, device: str | torch.device) -> None:
@@ -184,16 +222,16 @@ def pretrain_config(cfg: Config, num_data: Optional[int] = None) -> PretrainConf
     ``dataset.batch_size`` clips a step. ``num_data`` overrides
     ``loss.args.num_data`` (the loop passes the dataset's size). Raises
     for what the port does not build: another ``model.arch`` than
-    av_wrapper, another loss than AVID (AVID-CMA is ROADMAP A5)."""
+    av_wrapper, another loss than AVID and AVID_CMA (or AVID-CMA)."""
     if str(cfg.model.get("arch", "av_wrapper")) != "av_wrapper":
         raise ValueError(f"model.arch {cfg.model.get('arch')!r}: the port builds av_wrapper only")
-    loss_name = str(cfg.loss["name"])
-    if loss_name != "AVID":
-        raise NotImplementedError(
-            f"loss.name {loss_name!r}: only AVID is ported; AVID-CMA (positive "
-            "mining, the four-head loss) is ROADMAP A5")
+    loss_name = str(cfg.loss["name"]).replace("-", "_")
+    if loss_name not in LOSSES:
+        raise ValueError(f"loss.name {cfg.loss['name']!r}: expected one of {LOSSES}")
     db, opt, args = cfg.dataset, cfg.optimizer, cfg.model.get("args", {})
     loss = cfg.loss.get("args", {})
+    sampling = loss.get("sampling_args", {}) or {}
+    within = loss.get("num_negatives_within", 64)
     pp = build_preprocess_config(db)
     proj = args.get("proj_dim", 128)
     return PretrainConfig(
@@ -214,11 +252,21 @@ def pretrain_config(cfg: Config, num_data: Optional[int] = None) -> PretrainConf
         video_depth=int(args.get("video_backbone_args", {}).get("depth", 18)),
         audio_backbone=str(args.get("audio_backbone", "Conv2D")),
         audio_depth=int(args.get("audio_backbone_args", {}).get("depth", 10)),
+        loss=loss_name,
         num_data=int(num_data if num_data is not None else loss["num_data"]),
         num_negatives=int(loss.get("num_negatives", 1024)),
         momentum=float(loss.get("momentum", 0.5)),
         xModal_coeff=float(loss.get("xModal_coeff", 1.0)),
         wModal_coeff=float(loss.get("wModal_coeff", 0.0)),
+        num_negatives_within=None if within is None else int(within),
+        xModalInstCoeff=float(loss.get("xModalInstCoeff", 1.0)),
+        wModalInstCoeff=float(loss.get("wModalInstCoeff", 0.0)),
+        xModalPosCoeff=float(loss.get("xModalPosCoeff", 0.0)),
+        wModalPosCoeff=float(loss.get("wModalPosCoeff", 1.0)),
+        pos_k=int(sampling.get("pos_k", 32)),
+        sampling_type=str(sampling.get("type", "consensus")),
+        mining_exact=bool(sampling.get("exact", True)),
+        resample_freq=int(loss.get("resample_freq", -1)),
         min_area=pp.min_area, color=pp.color, resize=pp.resize,
         jitter_order=pp.jitter_order,
     )
@@ -309,7 +357,7 @@ def build_dataloader(dataset, db_cfg: Config, split_cfg: Config, num_workers: in
 
 
 def _build_state(cfg: PretrainConfig, device: str | torch.device
-                 ) -> Tuple[TrainState, AVIDConfig]:
+                 ) -> Tuple[TrainState, Union[AVIDConfig, AVIDCMAConfig]]:
     dev = resolve_device(device)
     set_full_f32_precision()
     if dev.type == "cuda":
@@ -328,7 +376,9 @@ def _build_state(cfg: PretrainConfig, device: str | torch.device
 
 def build_pretrain(cfg: PretrainConfig, device: str | torch.device = "cuda"
                    ) -> Tuple[TrainState, Callable]:
-    """(state, fused_step) for AVID pretraining on ``device``; call
+    """(state, fused_step) for AVID or AVID-CMA pretraining on ``device``
+    (for AVID-CMA the state's positive set is zeroed: mine it with
+    ``criterions.mining.mine_positives`` before the first step); call
     ``fused_step(state, raw_batch, step_i)`` with raw batches
     {frames: uint8 (B,T,H,W,3), audio: f32 (B,L), index: (B,)} on the
     device. Raises when ``device`` is CUDA and no card is present."""
@@ -338,7 +388,7 @@ def build_pretrain(cfg: PretrainConfig, device: str | torch.device = "cuda"
 
 def build_eval(cfg: PretrainConfig, device: str | torch.device = "cuda"
                ) -> Tuple[TrainState, Callable, Callable]:
-    """(state, fused_eval_step, embed) for held-out evaluation of the AVID
+    """(state, fused_eval_step, embed) for held-out evaluation of the
     model on ``device``, the state built as ``build_pretrain``'s. Call
     ``fused_eval_step(state, raw_batch, batch_idx)`` with raw batches as
     for the train step (the eval preprocessing: resize and centre crop,

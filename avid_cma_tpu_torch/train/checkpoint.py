@@ -5,8 +5,8 @@
   avid_cma_tpu/train/checkpoint.py:47-54,139-207).
 - ``CheckpointManager``: the loop's own checkpoints, one ``torch.save`` of
   the whole train state per step saved (model, optimizer, scheduler,
-  banks and Z, step, epoch, the generator's state, the loader's
-  position), each written to a temporary file and moved into place, so a
+  banks and Z, the AVID-CMA positive set, step, epoch, the generator's
+  state, the loader's position), each written to a temporary file and moved into place, so a
   crash leaves the previous checkpoint whole. The ``max_to_keep`` newest
   are kept, and milestone copies (the reference's
   ``checkpoint-ep{N}.pth.tar``) always.
@@ -16,6 +16,10 @@
   parameter order, ``train_criterion`` holding both banks and
   ``avg_exp_score``. The port's state-dict keys are the reference's, so
   no key mapping is needed.
+- ``import_model_run`` and ``import_criterion_run``: the model, and the
+  banks and Z, from the newest checkpoint of one of the port's own runs
+  (the AVID -> AVID-CMA chain without a ``.pth.tar``; counterparts of the
+  JAX package's ``import_model_orbax`` / ``import_criterion_orbax``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from avid_cma_tpu_torch.criterions.avid import BankState
+from avid_cma_tpu_torch.criterions.avid_cma import CMAState, cma_state_from_bank
 from avid_cma_tpu_torch.train.state import TrainState
 
 _BN_SUFFIX = {"scale": "weight", "bias": "bias", "mean": "running_mean",
@@ -150,7 +155,8 @@ def export_pth_tar(path: str, model: torch.nn.Module, bank: Optional[BankState] 
                    epoch: int = 0, optimizer: Optional[torch.optim.Optimizer] = None) -> None:
     """Write a reference-compatible checkpoint {'epoch', 'model',
     'optimizer', 'train_criterion'} (the layout of
-    avid_cma_tpu/train/checkpoint.py:354-423). ``optimizer`` (Adam)
+    avid_cma_tpu/train/checkpoint.py:354-423; an AVID-CMA state's
+    positive set is not written, as there). ``optimizer`` (Adam)
     exports its moments as a torch ``optimizer.state_dict()`` indexed in
     the reference parameter order, so the reference resumes with intact
     moments; parameters Adam has not stepped yet are left out."""
@@ -254,13 +260,16 @@ def _atomic_save(obj: Any, path: str) -> None:
 
 def state_payload(state: TrainState, loader_position: Dict[str, int]) -> Dict[str, Any]:
     """Everything a resume needs, as one ``torch.save``-able dict."""
+    bank = {"view1_mem": state.bank.view1_mem, "view2_mem": state.bank.view2_mem,
+            "z": state.bank.z}
+    if isinstance(state.bank, CMAState):
+        bank["positive_set"] = state.bank.positive_set
     return {
         "step": int(state.step), "epoch": int(state.epoch),
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "scheduler": state.scheduler.state_dict(),
-        "bank": {"view1_mem": state.bank.view1_mem, "view2_mem": state.bank.view2_mem,
-                 "z": state.bank.z},
+        "bank": bank,
         "generator": state.generator.get_state(),
         "loader": dict(loader_position),
     }
@@ -268,18 +277,30 @@ def state_payload(state: TrainState, loader_position: Dict[str, int]) -> Dict[st
 
 def load_payload(state: TrainState, payload: Dict[str, Any]) -> Dict[str, int]:
     """Restore ``state`` in place from ``state_payload``'s dict; returns
-    the loader's position."""
+    the loader's position. An AVID-CMA state needs the payload's
+    positive set."""
     dev = state.bank.view1_mem.device
+    bank = payload["bank"]
+    if isinstance(state.bank, CMAState) and "positive_set" not in bank:
+        raise KeyError("the checkpoint holds no positive set: it is not an AVID-CMA run's")
     state.model.load_state_dict(payload["model"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.scheduler.load_state_dict(payload["scheduler"])
-    bank = payload["bank"]
-    state.bank = BankState(view1_mem=bank["view1_mem"].to(dev),
-                           view2_mem=bank["view2_mem"].to(dev), z=bank["z"].to(dev))
+    restored = BankState(view1_mem=bank["view1_mem"].to(dev),
+                         view2_mem=bank["view2_mem"].to(dev), z=bank["z"].to(dev))
+    if isinstance(state.bank, CMAState):
+        restored = cma_state_from_bank(restored, bank["positive_set"])
+    state.bank = restored
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     state.epoch = int(payload["epoch"])
     return dict(payload["loader"])
+
+
+def _saved_steps(directory: str) -> List[int]:
+    """The steps of the ``ckpt-<step>.pt`` files in ``directory``, ascending."""
+    return sorted(int(m.group(1)) for m in (re.fullmatch(r"ckpt-(\d+)\.pt", name)
+                                            for name in os.listdir(directory)) if m)
 
 
 class CheckpointManager:
@@ -304,12 +325,7 @@ class CheckpointManager:
         return os.path.join(self.directory, f"ckpt-{int(step):09d}.pt")
 
     def all_steps(self) -> List[int]:
-        steps = []
-        for name in os.listdir(self.directory):
-            m = re.fullmatch(r"ckpt-(\d+)\.pt", name)
-            if m:
-                steps.append(int(m.group(1)))
-        return sorted(steps)
+        return _saved_steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -344,3 +360,36 @@ class CheckpointManager:
         # and Adam's step counts and the generator's state must stay there
         payload = torch.load(self.path(step), map_location="cpu", weights_only=False)
         return load_payload(state, payload)
+
+
+# ---------------------------------------------------------------------------
+# warm starts from the port's own runs
+# ---------------------------------------------------------------------------
+
+def _latest_run_payload(path: str) -> Dict[str, Any]:
+    """The newest checkpoint's payload under a port run's directory
+    (``<model_dir>/<name>``) or its ``checkpoints/``."""
+    directory = os.path.join(path, "checkpoints")
+    if not os.path.isdir(directory):
+        directory = path
+    steps = _saved_steps(directory) if os.path.isdir(directory) else []
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint of a port run (ckpt-*.pt) under {path}")
+    return torch.load(os.path.join(directory, f"ckpt-{steps[-1]:09d}.pt"),
+                      map_location="cpu", weights_only=False)
+
+
+def import_model_run(path: str) -> Dict[str, torch.Tensor]:
+    """The model state_dict of a port run's newest checkpoint (the model
+    half of the AVID -> AVID-CMA chain)."""
+    return _latest_run_payload(path)["model"]
+
+
+def import_criterion_run(path: str, device: str | torch.device = "cpu") -> BankState:
+    """The banks and the frozen Z of a port run's newest checkpoint (no
+    positive set: the AVID-CMA run mines its own)."""
+    bank = _latest_run_payload(path)["bank"]
+    dev = torch.device(device)
+    return BankState(view1_mem=bank["view1_mem"].to(dev, torch.float32),
+                     view2_mem=bank["view2_mem"].to(dev, torch.float32),
+                     z=bank["z"].to(dev, torch.float32))

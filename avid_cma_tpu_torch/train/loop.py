@@ -5,7 +5,12 @@ Capability reference: main-avid.py:84-201 (main_worker + run_phase):
 build everything from the YAML, restore, loop epochs calling the fused
 step, checkpoint each epoch (+ milestone copies and every
 ``save_freq_steps``), meters + TensorBoard, and the held-out test phase
-every ``test_freq`` epochs through the fused eval step.
+every ``test_freq`` epochs through the fused eval step. For AVID-CMA
+(avid_cma_tpu/train/loop.py:169-241, 414-498): the model and the banks +
+Z warm-start from the AVID run (a ``.pth.tar`` or a port run's
+directory), the positive set is mined after the restore unless the run
+resumes, and re-mined at the start of each epoch where
+``should_resample``, if this run trains that epoch's first batch.
 
 The host loop only feeds raw batches (host decode -> ``device_prefetch``)
 and drains metrics: the per-step losses stay on the device and are
@@ -22,13 +27,23 @@ import torch
 
 from avid_cma_tpu_torch import config as config_lib
 from avid_cma_tpu_torch.config import Config
+from avid_cma_tpu_torch.criterions.avid import BankState
+from avid_cma_tpu_torch.criterions.avid_cma import (
+    AVIDCMAConfig,
+    CMAState,
+    cma_state_from_bank,
+    should_resample,
+)
+from avid_cma_tpu_torch.criterions.mining import mine_positives
 from avid_cma_tpu_torch.data.prefetch import device_prefetch
 from avid_cma_tpu_torch.device import resolve_device
 from avid_cma_tpu_torch.train import builders
 from avid_cma_tpu_torch.train.checkpoint import (
     CheckpointManager,
     import_criterion_pth_tar,
+    import_criterion_run,
     import_model_pth_tar,
+    import_model_run,
 )
 from avid_cma_tpu_torch.train.state import TrainState
 from avid_cma_tpu_torch.train.step import make_fused_eval_step
@@ -43,20 +58,55 @@ from avid_cma_tpu_torch.utils.profiling import StepWindowTracer
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise for what the port cannot run yet, naming its ROADMAP item:
-    AVID-CMA (A5), a sharded bank or more than one process (A6)."""
-    name = str(cfg.loss["name"])
-    if name.replace("-", "_") == "AVID_CMA":
-        raise NotImplementedError(
-            f"loss.name {name!r}: AVID-CMA (positive mining, the four-head loss) "
-            "is not ported yet (ROADMAP A5)")
+    """Raise for what the port cannot run yet, naming each such setting
+    and its ROADMAP item: a sharded bank or more than one process (A6),
+    approximate CMA mining, ``sampling_args.exact: false`` (A8)."""
+    gaps = []
     if str(cfg.loss.get("bank_sharding", "replicated")) != "replicated":
-        raise NotImplementedError(
-            "loss.bank_sharding: sharded banks are not ported yet (ROADMAP A6); "
-            "set loss.bank_sharding=replicated")
+        gaps.append("loss.bank_sharding: sharded banks are not ported yet (ROADMAP A6); "
+                    "set loss.bank_sharding=replicated")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "multi-process training (WORLD_SIZE > 1) is not ported yet (ROADMAP A6)")
+        gaps.append("multi-process training (WORLD_SIZE > 1) is not ported yet (ROADMAP A6)")
+    sampling = cfg.loss.get("args", {}).get("sampling_args", {}) or {}
+    if not sampling.get("exact", True):
+        gaps.append("loss.args.sampling_args.exact: false (approximate top-k mining, "
+                    "lax.approx_max_k) has no torch counterpart (ROADMAP A8); "
+                    "set exact: true")
+    if gaps:
+        raise NotImplementedError("; ".join(gaps))
+
+
+def _warm_start_bank(path: str, num_data: int, dev: torch.device, logger: Logger
+                     ) -> BankState:
+    """Banks + Z from the AVID run (avid_cma_tpu/train/loop.py:414-466): a
+    port run's directory or a ``.pth.tar``; banks with more rows than
+    ``num_data`` (a sharded run's pad) are trimmed, fewer raise."""
+    if os.path.isdir(path):
+        bank = import_criterion_run(path, dev)
+        logger.add_line(f"restored banks from port run {path} (z={float(bank.z):.4f})")
+    else:
+        bank = import_criterion_pth_tar(path, dev)
+        logger.add_line(f"restored banks from {path} (z={float(bank.z):.4f})")
+    rows = bank.view1_mem.shape[0]
+    if rows < num_data:
+        raise ValueError(f"checkpoint banks have {rows} rows; this run's num_data={num_data}")
+    if rows > num_data:
+        logger.add_line(f"trimming restored banks {rows} -> {num_data} rows "
+                        "(source run's sharding pad)")
+        bank = BankState(view1_mem=bank.view1_mem[:num_data].contiguous(),
+                         view2_mem=bank.view2_mem[:num_data].contiguous(), z=bank.z)
+    return bank
+
+
+def _mine(state: TrainState, crit: AVIDCMAConfig, dev: torch.device) -> float:
+    """Mine the positive set of the state's banks into the state; the
+    sweep's seconds (the card synchronized)."""
+    t0 = time.perf_counter()
+    pos = mine_positives(state.bank.view1_mem, state.bank.view2_mem, crit.pos_k,
+                         crit.sampling_type, exact=crit.mining_exact)
+    _sync(dev)
+    state.bank = cma_state_from_bank(state.bank, pos)
+    return time.perf_counter() - t0
 
 
 def _sync(dev: torch.device) -> None:
@@ -71,7 +121,10 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
     card is present). ``on_epoch``, when given, gets one dict a train
     epoch: epoch, start_step, steps, clips, loss (the epoch's mean train
     loss), train_s (host clock, the card synchronized at the end),
-    loader_wait_s (time the loop waited for the next batch), test_loss."""
+    loader_wait_s (time the loop waited for the next batch), test_loss,
+    mine_s (seconds of the AVID-CMA mining before the epoch's first batch:
+    the first mining of a run counts for the first epoch it trains; None
+    when the epoch mined nothing)."""
     check_ported(cfg)
     dev = resolve_device(device)
     builders.check_model_dtype(cfg.model.get("dtype"), dev)
@@ -131,22 +184,36 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
         logger.add_line(f"resumed from step {state.step} (epoch {state.epoch}, "
                         f"batch {position['batch']})")
     else:
-        # warm start from a reference-layout .pth.tar (the AVID-CMA configs
-        # point model.args.checkpoint at the AVID pretrain checkpoint)
+        # warm start from the AVID run (the AVID-CMA configs point
+        # model.args.checkpoint and loss.args.checkpoint at it): a
+        # reference-layout .pth.tar or a port run's directory
         model_ck = cfg.model.get("args", {}).get("checkpoint")
-        if model_ck and os.path.isfile(model_ck):
-            state.model.load_state_dict(import_model_pth_tar(model_ck), strict=True)
+        if model_ck and os.path.exists(model_ck):
+            sd = (import_model_run(model_ck) if os.path.isdir(model_ck)
+                  else import_model_pth_tar(model_ck))
+            state.model.load_state_dict(sd, strict=True)
             logger.add_line(f"warm-started model from {model_ck}")
         elif model_ck:
             logger.add_line(f"model.args.checkpoint {model_ck} not found; random weights")
         bank_ck = cfg.loss.get("args", {}).get("checkpoint")
-        if bank_ck and os.path.isfile(bank_ck):
-            bank = import_criterion_pth_tar(bank_ck, dev)
+        if bank_ck and os.path.exists(bank_ck):
+            bank = _warm_start_bank(bank_ck, pcfg.num_data, dev, logger)
             if bank.view1_mem.shape != state.bank.view1_mem.shape:
                 raise ValueError(f"checkpoint banks {tuple(bank.view1_mem.shape)} != "
                                  f"{tuple(state.bank.view1_mem.shape)} of this run")
-            state.bank = bank
-            logger.add_line(f"restored banks from {bank_ck} (z={float(bank.z):.4f})")
+            state.bank = (cma_state_from_bank(bank, state.bank.positive_set)
+                          if isinstance(state.bank, CMAState) else bank)
+        elif bank_ck and isinstance(state.bank, CMAState):
+            logger.add_line(f"warning: CMA checkpoint {bank_ck} missing; random banks")
+
+    crit = pcfg.criterion(state.model.out_dim)
+    cma = isinstance(crit, AVIDCMAConfig)
+    mine_s = None
+    if cma and not resuming:
+        logger.add_line(f"mining CMA positives: N={crit.num_data} pos_k={crit.pos_k} "
+                        f"type={crit.sampling_type}")
+        mine_s = _mine(state, crit, dev)
+        logger.add_line(f"mined the positive set in {mine_s:.3f} s")
 
     eval_step = None
     start_epoch = state.epoch
@@ -174,6 +241,13 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
                 logger.add_line(f"mid-epoch resume: skipping {start_it} already-trained "
                                 f"batches of epoch {epoch}")
                 loader.set_start_batch(start_it)
+        # re-mine only at an epoch whose first batch this run trains: a
+        # mid-epoch resume keeps the checkpoint's set, so that it repeats
+        # the straight run (the JAX loop re-mines there too)
+        if cma and start_it == 0 and should_resample(epoch, crit.resample_freq):
+            logger.add_line(f"epoch {epoch}: re-mining CMA positive set")
+            mine_s = _mine(state, crit, dev)
+            logger.add_line(f"mined the positive set in {mine_s:.3f} s")
         pending = []  # (loss on the device, clips) until the next drain
 
         def drain_losses():
@@ -232,8 +306,7 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
         test_loss = None
         if test_loader is not None and (epoch % max(test_freq, 1) == 0 or epoch == epochs - 1):
             if eval_step is None:
-                eval_step = make_fused_eval_step(pcfg.criterion(state.model.out_dim),
-                                                 pcfg.preprocess(), pcfg.seed)
+                eval_step = make_fused_eval_step(crit, pcfg.preprocess(), pcfg.seed)
             test_loader.set_epoch(epoch)
             losses = []
             for it, batch in enumerate(device_prefetch(test_loader, dev)):
@@ -247,7 +320,8 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
         if on_epoch is not None:
             on_epoch({"epoch": epoch, "start_step": start_step, "steps": steps, "clips": clips,
                       "loss": meters["loss"].avg, "train_s": train_s,
-                      "loader_wait_s": wait_s, "test_loss": test_loss})
+                      "loader_wait_s": wait_s, "test_loss": test_loss, "mine_s": mine_s})
+        mine_s = None
 
     if tracer.active:  # the window's end lies beyond the run's last step
         tracer.close()

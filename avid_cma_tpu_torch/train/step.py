@@ -1,8 +1,9 @@
 """The train step (counterpart of avid_cma_tpu/train/step.py, one device).
 
 ``make_train_step`` returns ``step(state, batch, neg_idx=None)``: model
-forward in train mode (BN running stats update), the AVID criterion,
-backward, optimizer step, and the new banks. ``make_fused_train_step``
+forward in train mode (BN running stats update), the criterion (AVID or
+AVID-CMA, by the type of its config, as ``criterion_fn``), backward,
+optimizer step, and the new banks. ``make_fused_train_step``
 puts the device preprocessing in front: ``fused(state, raw_batch, step_i)``.
 ``make_eval_loss_step`` / ``make_fused_eval_step`` give the held-out
 criterion loss without changing the state, and ``make_embed_fn`` the
@@ -13,32 +14,53 @@ compile; the step is the same sequence of launches every call.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
 from avid_cma_tpu_torch.criterions.avid import AVIDConfig, avid_forward, init_bank_state
+from avid_cma_tpu_torch.criterions.avid_cma import (
+    AVIDCMAConfig,
+    cma_forward,
+    cma_state_from_bank,
+)
 from avid_cma_tpu_torch.data.pipelines import PreprocessConfig, preprocess_batch
 from avid_cma_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
+CriterionConfig = Union[AVIDConfig, AVIDCMAConfig]
+
+
+def criterion_fn(cfg: CriterionConfig) -> Callable:
+    """The criterion of a config: ``avid_forward`` or ``cma_forward``,
+    both called as ``(bank, v_emb, a_emb, y, cfg, neg_idx=, generator=)``."""
+    if isinstance(cfg, AVIDCMAConfig):
+        return cma_forward
+    if isinstance(cfg, AVIDConfig):
+        return avid_forward
+    raise TypeError(f"unknown criterion config {type(cfg)}")
 
 
 def init_train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                     scheduler, criterion_cfg: AVIDConfig, seed: int) -> TrainState:
-    """Banks and the step generator on the model's device, from ``seed``."""
+                     scheduler, criterion_cfg: CriterionConfig, seed: int) -> TrainState:
+    """Banks and the step generator on the model's device, from ``seed``.
+    For AVID-CMA the positive set starts zeroed: the caller mines it."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     bank = init_bank_state(criterion_cfg.num_data, criterion_cfg.embedding_dim, gen)
+    if isinstance(criterion_cfg, AVIDCMAConfig):
+        bank = cma_state_from_bank(bank, torch.zeros(
+            (criterion_cfg.num_data, criterion_cfg.pos_k), dtype=torch.int64, device=dev))
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler,
                       bank=bank, generator=gen)
 
 
-def make_train_step(criterion_cfg: AVIDConfig
+def make_train_step(criterion_cfg: CriterionConfig
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """step(state, batch, neg_idx=None) -> metrics (0-d device tensors).
     Negatives come from ``neg_idx`` (B, K) when given, else from the
     state's generator. Updates ``state`` in place."""
+    criterion = criterion_fn(criterion_cfg)
 
     def step(state: TrainState, batch: Batch,
              neg_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -46,7 +68,7 @@ def make_train_step(criterion_cfg: AVIDConfig
         model.train()
         y = batch["index"].long()
         v_emb, a_emb = model(batch["frames"], batch["audio"])
-        loss, logs, new_bank = avid_forward(
+        loss, logs, new_bank = criterion(
             state.bank, v_emb, a_emb, y, criterion_cfg,
             neg_idx=neg_idx, generator=state.generator)
         state.optimizer.zero_grad(set_to_none=True)
@@ -59,7 +81,7 @@ def make_train_step(criterion_cfg: AVIDConfig
     return step
 
 
-def make_fused_train_step(criterion_cfg: AVIDConfig, pp_cfg: PreprocessConfig,
+def make_fused_train_step(criterion_cfg: CriterionConfig, pp_cfg: PreprocessConfig,
                           seed: int) -> Callable[[TrainState, Batch, int], Dict[str, torch.Tensor]]:
     """fused(state, raw_batch, step_i): preprocess on the device, then the
     train step. The state's generator is reseeded from (seed, step_i) at
@@ -88,7 +110,7 @@ def _evaluating(model: torch.nn.Module) -> Iterator[None]:
         model.train(was_training)
 
 
-def make_eval_loss_step(criterion_cfg: AVIDConfig, seed: int
+def make_eval_loss_step(criterion_cfg: CriterionConfig, seed: int
                         ) -> Callable[..., Dict[str, torch.Tensor]]:
     """step(state, batch, batch_idx=0, neg_idx=None) -> metrics: the
     criterion loss of a held-out batch with the model in eval mode, under
@@ -99,6 +121,7 @@ def make_eval_loss_step(criterion_cfg: AVIDConfig, seed: int
     from ``neg_idx`` when given, else from a generator of the step's own,
     seeded from (seed, batch_idx), so successive held-out batches draw
     different negatives."""
+    criterion = criterion_fn(criterion_cfg)
 
     def step(state: TrainState, batch: Batch, batch_idx: int = 0,
              neg_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -109,14 +132,14 @@ def make_eval_loss_step(criterion_cfg: AVIDConfig, seed: int
             if neg_idx is None:
                 gen = torch.Generator(device=y.device).manual_seed(
                     (seed + 3) * 1_000_003 + int(batch_idx))
-            loss, logs, _ = avid_forward(state.bank, v_emb, a_emb, y, criterion_cfg,
-                                         neg_idx=neg_idx, generator=gen)
+            loss, logs, _ = criterion(state.bank, v_emb, a_emb, y, criterion_cfg,
+                                      neg_idx=neg_idx, generator=gen)
         return {**logs, "loss": loss}
 
     return step
 
 
-def make_fused_eval_step(criterion_cfg: AVIDConfig, pp_cfg: PreprocessConfig,
+def make_fused_eval_step(criterion_cfg: CriterionConfig, pp_cfg: PreprocessConfig,
                          seed: int) -> Callable[[TrainState, Batch, int], Dict[str, torch.Tensor]]:
     """fused(state, raw_batch, batch_idx): the eval preprocessing
     (``preprocess_batch(train=False)``), then the eval-loss step."""

@@ -17,16 +17,21 @@
    NCE_RING index draws, more rows than L2 holds, cycled across
    launches; its CUDA-event time on one warm draw, the wrapper's host
    cost per call, and ``index_select`` of the same cold rows (a reference
-   only) are printed beside it;
+   only) are printed beside it. K4 also at the AVID-CMA index shapes:
+   K = 32 (the positives) and K = 64 (a contiguous copy of the first 64
+   columns of a 1024-column draw, the within-modal negatives);
 3. runs one train step, and one eval-mode forward, at a small size on the
    card and on the CPU from the same weights and inputs and compares loss,
-   Z and bank rows, and the embeddings;
+   Z and bank rows, and the embeddings; then the AVID-CMA positive set of
+   small random banks mined on both (equal), and one AVID-CMA train step
+   on both from the same weights, banks, positive set and negatives;
 4. runs the Kinetics Cross-N1024 AVID pretraining slice at full width
    (R2Plus1D-18 + Conv2D-10, 32 clips of 8 x 224^2, 2 s audio, N = 232,067
    bank rows, 1024 negatives) through ``build_pretrain`` and the fused
    step: one warm-up step, then 5 timed steps with the launch counters
    reset just before them; checks finite losses, a frozen Z > 0, unit-norm
-   touched bank rows, and that each kernel ran on that path;
+   touched bank rows, and that each kernel ran on that path; prints the
+   step's device-busy ms (torch.profiler);
 5. runs the forward-only slice of the same model through ``build_eval``:
    raw 240 x 320 frames through the eval preprocessing, one warm-up eval
    step, 5 timed ones with the counters reset just before them, then one
@@ -50,7 +55,26 @@
    per epoch, the loader-wait share, the device's idle share over the
    second run's traced steps (the loop's ``profile_steps`` window), the
    peak memory and the launches;
-8. prints one JSON line per check, a summary line per slice, the
+8. runs the AVID-CMA slice (``kinetics_cma()``: the same model and batch,
+   1024 negatives, 64 within, the top-32 consensus positives): mines the
+   full positive set of N = 232,067 random unit-norm bank rows on the card
+   (its seconds), holds 256 random rows of it against a CPU sweep of those
+   rows against the full banks (equal, except rows whose k-th and
+   (k+1)-th agreement lie within MINING_TIE of each other in f64), checks
+   every row (sorted, unique, in range, no self), then one warm-up and 5
+   timed fused CMA train steps with the counters reset before the timed
+   ones: finite losses, a frozen Z > 0, unit-norm touched rows, no drawn
+   negative inside its row's positive set, each kernel's launches; prints
+   clips/s, peak memory and the step's device-busy ms;
+9. drives ``run_pretraining`` on the Kinetics AVID-CMA YAML with the loop
+   phase's overrides, warm-started (model, banks and Z) from the loop
+   phase's AVID run directory and re-mining every epoch: one epoch, then a
+   resume to two; checks finite losses, Z equal bit for bit to the AVID
+   run's, that the first run mined and the resumed one re-mined at epoch
+   1, a valid positive set in the last checkpoint, and each kernel's
+   launches over the two runs; prints clips/s per epoch, the loader-wait
+   share and the mining seconds;
+10. prints one JSON line per check, a summary line per slice, the
    ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 
 Every phase raises on failure; nothing is caught. Without a CUDA card the
@@ -73,12 +97,14 @@ import numpy as np
 import torch
 
 from avid_cma_tpu_torch import config as config_lib
+from avid_cma_tpu_torch.criterions import avid_cma, mining
 from avid_cma_tpu_torch.criterions.avid import AVIDConfig, BankState
 from avid_cma_tpu_torch.data.pipelines import preprocess_batch
 from avid_cma_tpu_torch.device import set_full_f32_precision
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
 from avid_cma_tpu_torch.models.blocks import BatchNorm
 from avid_cma_tpu_torch.ops import stft, video_aug
+from avid_cma_tpu_torch.ops.sampling import rank_shift
 from avid_cma_tpu_torch.ops.kernels import (
     _lib,
     nce_gather,
@@ -90,12 +116,14 @@ from avid_cma_tpu_torch.scripts.r2p1d_block_bench import cudnn_bf16_pair, cudnn_
 from avid_cma_tpu_torch.train.builders import (
     build_eval,
     build_pretrain,
+    kinetics_cma,
     kinetics_cross_n1024,
 )
 from avid_cma_tpu_torch.train.checkpoint import (
     CheckpointManager,
     export_pth_tar,
     import_criterion_pth_tar,
+    import_criterion_run,
     import_model_pth_tar,
     import_optimizer_pth_tar,
 )
@@ -168,6 +196,21 @@ LOOP_STEPS = 5  # train steps an epoch, and test steps an epoch
 EXPECTED_LOOP_LAUNCHES = {"spectrogram": 4 * LOOP_STEPS, "stem_pool_fwd": 4 * LOOP_STEPS,
                           "stem_pool_bwd": 2 * LOOP_STEPS, "nce_gather": 16 * LOOP_STEPS,
                           "r2p1d_pair": 26 * LOOP_STEPS}
+# AVID-CMA: 8 score launches a step (inst-v2a and inst-a2v: the self row
+# and the negatives; pos-v2v and pos-a2a: the positives and the first 64
+# negatives), against AVID's 4
+EXPECTED_CMA_LAUNCHES = {"spectrogram": 5, "stem_pool_fwd": 5, "stem_pool_bwd": 5,
+                         "nce_gather": 40, "r2p1d_pair": 0}
+CMA_LOOP_CONFIG = os.path.join(REPO, "configs/main/avid-cma/kinetics/"
+                                     "InstX-N1024-PosW-N64-Top32.yaml")
+EXPECTED_CMA_LOOP_LAUNCHES = {"spectrogram": 4 * LOOP_STEPS, "stem_pool_fwd": 4 * LOOP_STEPS,
+                              "stem_pool_bwd": 2 * LOOP_STEPS, "nce_gather": 32 * LOOP_STEPS,
+                              "r2p1d_pair": 26 * LOOP_STEPS}
+# mining, card against CPU: a row may differ only where its k-th and
+# (k+1)-th agreement, recomputed in f64, lie closer than this (the two sum
+# the f32 products in other orders)
+MINING_TIE = 1e-6
+MINING_SAMPLE_ROWS = 256
 # crop+color against the CPU's f32 from the same draws. In f32 the card
 # differs only in summation order: 1e-4, the CPU parity gate. In bf16 the
 # hue op sets the bound: h * 6 rounds to 2^-5 in [4, 6), so a channel moves
@@ -344,7 +387,10 @@ def check_stem_pool(results: dict) -> None:
 
 
 def check_nce_gather(results: dict) -> None:
-    """K4 at K = 1024 (negatives) and K = 1 (the positive). Its time is its
+    """K4 at K = 1024 (negatives) and K = 1 (the positive), and at the
+    AVID-CMA shapes K = 32 (the positives) and K = 64 (the within-modal
+    negatives: a contiguous copy of a 1024-column draw's first 64
+    columns, as ``cma_forward`` passes them). Its time is its
     device interval over a ring of NCE_RING index draws cycled across
     launches, so the rows are cold in L2 as on the main path (fresh
     negatives every step, from a 119 MB bank); the bound counts the unique
@@ -359,8 +405,9 @@ def check_nce_gather(results: dict) -> None:
         torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda(), dim=1)
     q = torch.nn.functional.normalize(
         torch.from_numpy(rng.standard_normal((bsz, d), dtype=np.float32)).cuda(), dim=1)
-    for k in (1024, 1):
-        ring = [torch.from_numpy(rng.integers(0, n, (bsz, k))).cuda() for _ in range(NCE_RING)]
+    for k, cols in ((1024, 1024), (1, 1), (32, 32), (64, 1024)):
+        ring = [torch.from_numpy(rng.integers(0, n, (bsz, cols))).cuda()[:, :k].contiguous()
+                for _ in range(NCE_RING)]
         abs_err = rel = 0.0
         for idx in ring:
             got = nce_gather.scores(bank, idx, q, 0.07)
@@ -387,14 +434,15 @@ def check_nce_gather(results: dict) -> None:
         nbytes = rows * d * 4 + bsz * k * 8 + q.numel() * 4 + bsz * k * 4
         idx = ring[0]
         # max_err: relative to the largest score
-        report(results, "nce_gather", f"K={k}", abs_err, rel, 1.3e-5,
+        case = f"K={k}" if k == cols else f"K={k} (first {k} of {cols} columns, contiguous)"
+        report(results, "nce_gather", case, abs_err, rel, 1.3e-5,
                lambda: nce_gather.scores(bank, idx, q, 0.07),
                lambda: nce_gather.plain_scores(bank, idx, q, 0.07),
                nbytes, 2.0 * bsz * k * d, device_ms=dev_ms,
                extra={"kernel_ms_is": f"device interval, cold rows (ring of {NCE_RING})",
                       "event_ms_is": "CUDA events around the wrapper, one draw (warm rows)",
                       "wrapper_host_us": host_us, "unique_rows": rows})
-        print(json.dumps({"name": KERNELS["nce_gather"]["name"], "case": f"K={k}",
+        print(json.dumps({"name": KERNELS["nce_gather"]["name"], "case": case,
                           "ref_gather_ms": gather_ms,
                           "ref_gather_call": "bank.index_select(0, idx.flatten()), cold rows"}),
               flush=True)
@@ -524,6 +572,81 @@ def check_small_eval() -> None:
     require(min(cos) >= 0.99, f"small eval forward: card and CPU disagree (cos {cos})")
 
 
+def check_positive_set(pos: torch.Tensor, n: int, pos_k: int, rows=None) -> None:
+    """Every row of a mined positive set (of the bank rows ``rows``, all
+    by default) sorted ascending and so unique, in [0, n), without its own
+    index."""
+    rows = torch.arange(pos.shape[0]) if rows is None else rows.cpu()
+    pos = pos.cpu()
+    require(tuple(pos.shape) == (rows.shape[0], pos_k) and pos.dtype == torch.int64,
+            f"positive set {tuple(pos.shape)} {pos.dtype}")
+    require(bool((pos[:, 1:] > pos[:, :-1]).all()), "positive set rows not sorted and unique")
+    require(int(pos.min()) >= 0 and int(pos.max()) < n, "positive set index out of range")
+    require(not bool((pos == rows[:, None]).any()), "a positive set row holds its own index")
+
+
+def mining_disagreement(card: torch.Tensor, cpu: torch.Tensor, bank_v, bank_a,
+                        rows: torch.Tensor, pos_k: int, kind: str) -> dict:
+    """Card's against CPU's mining of the bank rows ``rows``: equal, except
+    rows whose k-th and (k+1)-th agreement lie within MINING_TIE in f64."""
+    differ = (card.cpu() != cpu.cpu()).any(dim=1).nonzero().flatten()
+    gaps = (mining.boundary_gap(bank_v, bank_a, rows.cpu()[differ], pos_k, kind)
+            if differ.numel() else torch.zeros(0, dtype=torch.float64))
+    out = {"rows_compared": int(rows.shape[0]), "rows_differing": int(differ.numel()),
+           "max_boundary_gap_of_differing_rows": float(gaps.max()) if gaps.numel() else None,
+           "tie_tol": MINING_TIE}
+    require(not bool((gaps >= MINING_TIE).any()),
+            f"mining: card and CPU pick other sets away from a near-tie ({out})")
+    return out
+
+
+def check_small_cma_step() -> None:
+    """The AVID-CMA positive set of small random banks mined on the card
+    and on the CPU (equal), then one AVID-CMA train step at a small size on
+    each from the same weights, banks, positive set and negatives (drawn
+    past the positives): loss and Z within 2%, the touched bank rows
+    within cosine 0.99, as the AVID step's check."""
+    rng = np.random.default_rng(7)
+    n, k, within, pos_k, b = 256, 64, 16, 8, 8
+    banks = rng.standard_normal((2, n, 128), dtype=np.float32)
+    banks /= np.linalg.norm(banks, axis=2, keepdims=True)
+    pos = {dev: mining.mine_positives(*(torch.from_numpy(m).to(dev) for m in banks), pos_k).cpu()
+           for dev in ("cpu", "cuda")}
+    require(torch.equal(pos["cuda"], pos["cpu"]), "small mining: card and CPU sets differ")
+    check_positive_set(pos["cpu"], n, pos_k)
+    batch = {"frames": rng.standard_normal((b, 8, 64, 64, 3), dtype=np.float32),
+             "audio": rng.standard_normal((b, 40, 257, 1), dtype=np.float32),
+             "index": rng.choice(n, b, replace=False)}
+    y = torch.from_numpy(batch["index"])
+    negs = rank_shift(torch.from_numpy(rng.integers(0, n - pos_k, (b, k))), pos["cpu"][y])
+    crit = avid_cma.AVIDCMAConfig(num_data=n, num_negatives=k, num_negatives_within=within,
+                                  pos_k=pos_k)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = av_wrapper("R2Plus1D", {"depth": 10}, "Conv2D", {"depth": 10},
+                           proj_dim=[512, 512, 128], seed=0, device=dev)
+        opt = build_optimizer(model.parameters(), "adam", 2e-4, weight_decay=1e-5)
+        bank = avid_cma.CMAState(*(torch.from_numpy(m.copy()).to(dev) for m in banks),
+                                 z=torch.tensor(-1.0, device=dev),
+                                 positive_set=pos["cpu"].to(dev))
+        state = TrainState(model, opt, multistep_scheduler(opt, [], 1.0), bank,
+                           torch.Generator(device=dev))
+        m = make_train_step(crit)(
+            state, {key: torch.from_numpy(v).to(dev) for key, v in batch.items()},
+            neg_idx=negs.to(dev))
+        out[dev] = (float(m["loss"]), float(state.bank.z), state.bank.view2_mem[y.to(dev)].cpu())
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    z_rel = abs(out["cuda"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+    cos = float((out["cuda"][2] * out["cpu"][2]).sum(1).min())
+    print(json.dumps({"name": "small AVID-CMA mining and step, card vs CPU",
+                      "positive_sets_equal": True, "loss_cuda": out["cuda"][0],
+                      "loss_cpu": out["cpu"][0], "loss_rel": loss_rel, "z_rel": z_rel,
+                      "min_bank_row_cos": cos, "tol": {"loss_rel": 2e-2, "z_rel": 2e-2,
+                                                       "min_bank_row_cos": 0.99}}), flush=True)
+    require(loss_rel <= 2e-2 and z_rel <= 2e-2 and cos >= 0.99,
+            f"small CMA step: card and CPU disagree (loss {loss_rel}, Z {z_rel}, cos {cos})")
+
+
 def run_slice() -> dict:
     cfg = kinetics_cross_n1024()
     state, fused = build_pretrain(cfg, device="cuda")
@@ -562,10 +685,14 @@ def run_slice() -> dict:
         require(mem.shape == (cfg.num_data, 128), f"bank shape {tuple(mem.shape)}")
     require(launches == EXPECTED_LAUNCHES,
             f"kernel launches on the main path {launches}, expected {EXPECTED_LAUNCHES}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # every device interval of a step (one stream, so their sum is the
+    # busy time), to hold the AVID-CMA slice's against
+    busy = launch_split_ms(lambda: fused(state, raw, 100), ("",), iters=3)[""]
     return {
         "losses": losses.tolist(), "z": z0, "warmup_s": warmup_s,
         "step_ms": dt / TIMED_STEPS * 1e3, "clips_per_sec": b * TIMED_STEPS / dt,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+        "peak_mem_gib": peak, "launches": launches, "device_busy_ms_per_step": busy,
     }
 
 
@@ -682,6 +809,100 @@ def check_crop_color() -> dict:
     return line
 
 
+def run_cma_slice() -> dict:
+    """The Kinetics AVID-CMA train slice at full width: the full mining
+    sweep on the card, its sampled rows against the CPU, then 1 + 5 fused
+    CMA train steps."""
+    cfg = kinetics_cma()
+    state, fused = build_pretrain(cfg, device="cuda")
+    crit = cfg.criterion(state.model.out_dim)
+    bank_v, bank_a = state.bank.view1_mem, state.bank.view2_mem
+    n, d = bank_v.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pos = mining.mine_positives(bank_v, bank_a, crit.pos_k, crit.sampling_type)
+    torch.cuda.synchronize()
+    mine = {"mine_s": time.perf_counter() - t0,
+            "mine_tile": mining.default_tile(n, bank_v.device),
+            "mine_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            # the sweep's two (N, D) x (D, N) f32 products at the f32 peak
+            "mine_flop_bound_s": 2 * 2.0 * n * n * d / F32_FLOPS}
+    torch.cuda.empty_cache()
+    check_positive_set(pos, n, crit.pos_k)
+    rng = np.random.default_rng(8)
+    rows = torch.from_numpy(rng.choice(n, MINING_SAMPLE_ROWS, replace=False))
+    bv, ba = bank_v.cpu(), bank_a.cpu()
+    cpu = mining.sweep(bv, ba, rows, crit.pos_k, crit.sampling_type)
+    mine.update(mining_disagreement(pos[rows.cuda()], cpu, bv, ba, rows, crit.pos_k,
+                                    crit.sampling_type))
+    state.bank = avid_cma.cma_state_from_bank(state.bank, pos)
+    del bank_v, bank_a, bv, ba  # the step replaces the banks: hold no old copy
+
+    b, t = cfg.batch_size, cfg.num_frames
+    raw = {
+        "frames": torch.from_numpy(
+            rng.integers(0, 255, (b, t, *RAW_HW, 3), dtype=np.uint8)).cuda(),
+        "audio": torch.from_numpy(
+            rng.standard_normal((b, int(cfg.audio_clip_duration * cfg.audio_fps)),
+                                dtype=np.float32)).cuda(),
+        "index": torch.from_numpy(rng.choice(n, b, replace=False)).cuda(),
+    }
+    t0 = time.perf_counter()
+    for i in range(WARMUP_STEPS):
+        fused(state, raw, i)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    z0 = float(state.bank.z)
+    require(z0 > 0, f"Z not frozen after the first CMA step: {z0}")
+
+    # record each step's negatives and the positives they were drawn past
+    drawn = []
+    draw = avid_cma.draw_negatives_avoid_sorted
+
+    def recording_draw(pos_rows, *args, **kwargs):
+        neg = draw(pos_rows, *args, **kwargs)
+        drawn.append((pos_rows, neg))
+        return neg
+
+    avid_cma.draw_negatives_avoid_sorted = recording_draw
+    try:
+        _lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [fused(state, raw, WARMUP_STEPS + i)["loss"] for i in range(TIMED_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(_lib.LAUNCHES)
+    finally:
+        avid_cma.draw_negatives_avoid_sorted = draw
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    losses = torch.stack(losses).cpu()
+    require(bool(torch.isfinite(losses).all()), f"non-finite CMA loss {losses.tolist()}")
+    require(float(state.bank.z) == z0, "Z changed after it was frozen")
+    require(torch.equal(state.bank.positive_set, pos), "the step changed the positive set")
+    for mem in (state.bank.view1_mem, state.bank.view2_mem):
+        norms = torch.linalg.vector_norm(mem[raw["index"]], dim=1)
+        require(float((norms - 1).abs().max()) < 1e-5, "touched bank rows not unit norm")
+    require(len(drawn) == TIMED_STEPS, f"{len(drawn)} negative draws in {TIMED_STEPS} steps")
+    for pos_rows, neg in drawn:
+        require(torch.equal(pos_rows, pos[raw["index"]]), "negatives drawn past other rows")
+        require(tuple(neg.shape) == (b, crit.num_negatives) and int(neg.min()) >= 0
+                and int(neg.max()) < n, f"negatives {tuple(neg.shape)} out of range")
+        require(not bool((neg[:, :, None] == pos_rows[:, None, :]).any()),
+                "a drawn negative lies in its row's positive set")
+    require(launches == EXPECTED_CMA_LAUNCHES,
+            f"kernel launches on the CMA path {launches}, expected {EXPECTED_CMA_LAUNCHES}")
+    # every device interval of a step (one stream, so their sum is the busy time)
+    busy = launch_split_ms(lambda: fused(state, raw, 100), ("",), iters=3)[""]
+    return {
+        **mine, "losses": losses.tolist(), "z": z0, "warmup_s": warmup_s,
+        "step_ms": dt / TIMED_STEPS * 1e3, "clips_per_sec": b * TIMED_STEPS / dt,
+        "peak_mem_gib": peak, "launches": launches, "device_busy_ms_per_step": busy,
+    }
+
+
 def trace_device_share(path: str) -> dict:
     """Device busy time and the device's idle share over a
     ``torch.profiler`` chrome trace: the union of the kernel, memcpy and
@@ -705,102 +926,167 @@ def trace_device_share(path: str) -> dict:
                 1 for e in events if e.get("cat") == "kernel")}
 
 
-def _loop_config(model_dir: str, extra=()) -> config_lib.Config:
-    return config_lib.load(LOOP_CONFIG, LOOP_OVERRIDES + [f"model.model_dir={model_dir}",
-                                                          *extra])
+def _loop_config(model_dir: str, extra=(), path: str = LOOP_CONFIG) -> config_lib.Config:
+    return config_lib.load(path, LOOP_OVERRIDES + [f"model.model_dir={model_dir}", *extra])
 
 
-def run_loop() -> dict:
+@contextlib.contextmanager
+def loop_log(path: str, title: str):
+    """The loop's log (config, parameter table, progress) goes to a file
+    while the block runs, so that this script's output stays one line a
+    check; its tail is printed to stderr after it, whatever happened."""
+    try:
+        with open(path, "w") as log, contextlib.redirect_stdout(log):
+            yield
+    finally:
+        if os.path.exists(path):
+            with open(path) as f:
+                tail = [ln for ln in f.read().splitlines() if "|" not in ln][-30:]
+            print("\n".join([f"== {title} log (tail, no parameter table)"] + tail),
+                  file=sys.stderr)
+
+
+def run_loop(model_dir: str) -> dict:
     """The pretraining entry point from the YAML: one epoch, then a resume
     for a second; the checkpoint, the .pth.tar round trip and the
-    launches of each kernel over both runs."""
-    model_dir = tempfile.mkdtemp(prefix="chip_smoke_loop_")
-    # the loop's log (config, parameter table, progress) goes to a file, so
-    # that this script's output stays one line a check; its tail is printed
-    # to stderr at the end, whatever happened
-    log_path = os.path.join(model_dir, "stdout.log")
-    try:
-        records = []
-        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
-            torch.cuda.reset_peak_memory_stats()
-            _lib.reset_launches()
-            first = run_pretraining(_loop_config(model_dir), device="cuda",
-                                    on_epoch=records.append)
-            require((first.step, first.epoch) == (LOOP_STEPS, 1),
-                    f"first run ended at step {first.step}, epoch {first.epoch}")
-            del first
-            # the second run traces its epoch's steps (the loop's
-            # profile_steps window) for the device's idle share
-            second = run_pretraining(
-                _loop_config(model_dir, ["resume=true", "optimizer.num_epochs=2",
-                                         f"profile_steps=[{LOOP_STEPS},{2 * LOOP_STEPS}]"]),
-                device="cuda", on_epoch=records.append)
-            torch.cuda.synchronize()
-        launches = dict(_lib.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() / 2**30
+    launches of each kernel over both runs. The run's directory stays in
+    ``model_dir`` for the AVID-CMA loop phase."""
+    records = []
+    with loop_log(os.path.join(model_dir, "stdout.log"), "run_pretraining"):
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        first = run_pretraining(_loop_config(model_dir), device="cuda",
+                                on_epoch=records.append)
+        require((first.step, first.epoch) == (LOOP_STEPS, 1),
+                f"first run ended at step {first.step}, epoch {first.epoch}")
+        del first
+        # the second run traces its epoch's steps (the loop's
+        # profile_steps window) for the device's idle share
+        second = run_pretraining(
+            _loop_config(model_dir, ["resume=true", "optimizer.num_epochs=2",
+                                     f"profile_steps=[{LOOP_STEPS},{2 * LOOP_STEPS}]"]),
+            device="cuda", on_epoch=records.append)
+        torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
 
-        require([(r["epoch"], r["start_step"], r["steps"]) for r in records]
-                == [(0, 0, LOOP_STEPS), (1, LOOP_STEPS, LOOP_STEPS)],
-                f"epochs run {[(r['epoch'], r['start_step'], r['steps']) for r in records]}")
-        require(second.step == 2 * LOOP_STEPS and second.epoch == 2,
-                f"second run ended at step {second.step}, epoch {second.epoch}")
-        losses = [v for r in records for v in (r["loss"], r["test_loss"])]
-        require(all(v is not None and np.isfinite(v) for v in losses), f"losses {losses}")
-        require(launches == EXPECTED_LOOP_LAUNCHES,
-                f"kernel launches of the loop {launches}, expected {EXPECTED_LOOP_LAUNCHES}")
+    require([(r["epoch"], r["start_step"], r["steps"]) for r in records]
+            == [(0, 0, LOOP_STEPS), (1, LOOP_STEPS, LOOP_STEPS)],
+            f"epochs run {[(r['epoch'], r['start_step'], r['steps']) for r in records]}")
+    require(second.step == 2 * LOOP_STEPS and second.epoch == 2,
+            f"second run ended at step {second.step}, epoch {second.epoch}")
+    losses = [v for r in records for v in (r["loss"], r["test_loss"])]
+    require(all(v is not None and np.isfinite(v) for v in losses), f"losses {losses}")
+    require(launches == EXPECTED_LOOP_LAUNCHES,
+            f"kernel launches of the loop {launches}, expected {EXPECTED_LOOP_LAUNCHES}")
 
-        trace = os.path.join(model_dir, "Cross-N1024", "profile",
-                             f"trace_steps_{LOOP_STEPS}_{2 * LOOP_STEPS}.json")
-        require(os.path.isfile(trace), "the loop wrote no profiler trace")
-        share = trace_device_share(trace)
-        ckdir = os.path.join(model_dir, "Cross-N1024", "checkpoints")
-        mgr = CheckpointManager(ckdir)
-        require(mgr.latest_step() == 2 * LOOP_STEPS, f"latest checkpoint {mgr.latest_step()}")
-        saved = torch.load(mgr.path(mgr.latest_step()), map_location="cpu", weights_only=False)
-        for key in ("view1_mem", "view2_mem"):
-            mem = getattr(second.bank, key)
-            bank = saved["bank"][key]
-            require(torch.equal(bank, mem.cpu()), f"checkpoint {key} differs from the state")
-            norms = torch.linalg.vector_norm(bank, dim=1)
-            require(float((norms - 1).abs().max()) < 1e-5, f"checkpoint {key} rows not unit norm")
-        require(float(saved["bank"]["z"]) > 0, "checkpoint Z not frozen")
+    trace = os.path.join(model_dir, "Cross-N1024", "profile",
+                         f"trace_steps_{LOOP_STEPS}_{2 * LOOP_STEPS}.json")
+    require(os.path.isfile(trace), "the loop wrote no profiler trace")
+    share = trace_device_share(trace)
+    ckdir = os.path.join(model_dir, "Cross-N1024", "checkpoints")
+    mgr = CheckpointManager(ckdir)
+    require(mgr.latest_step() == 2 * LOOP_STEPS, f"latest checkpoint {mgr.latest_step()}")
+    saved = torch.load(mgr.path(mgr.latest_step()), map_location="cpu", weights_only=False)
+    for key in ("view1_mem", "view2_mem"):
+        mem = getattr(second.bank, key)
+        bank = saved["bank"][key]
+        require(torch.equal(bank, mem.cpu()), f"checkpoint {key} differs from the state")
+        norms = torch.linalg.vector_norm(bank, dim=1)
+        require(float((norms - 1).abs().max()) < 1e-5, f"checkpoint {key} rows not unit norm")
+    require(float(saved["bank"]["z"]) > 0, "checkpoint Z not frozen")
 
-        # .pth.tar export of the final state, then each import: the same bits
-        path = os.path.join(model_dir, "export.pth.tar")
-        export_pth_tar(path, second.model, bank=second.bank, epoch=second.epoch,
-                       optimizer=second.optimizer)
-        model_sd = import_model_pth_tar(path)
-        own = second.model.state_dict()
-        require(sorted(model_sd) == sorted(own) and all(
-            torch.equal(model_sd[k], own[k].cpu()) for k in own), "model round trip differs")
-        bank = import_criterion_pth_tar(path, "cuda")
-        require(torch.equal(bank.view1_mem, second.bank.view1_mem)
-                and torch.equal(bank.view2_mem, second.bank.view2_mem)
-                and torch.equal(bank.z, second.bank.z), "bank round trip differs")
-        fresh = torch.optim.Adam(second.model.parameters(), lr=1.0)
-        import_optimizer_pth_tar(path, second.model, fresh)
-        for p in second.model.parameters():
-            a, b = fresh.state[p], second.optimizer.state[p]
-            require(all(torch.equal(a[k].to(b[k].device), b[k])
-                        for k in ("step", "exp_avg", "exp_avg_sq")), "Adam round trip differs")
-        return {
-            "clips_per_sec_per_epoch": [r["clips"] / r["train_s"] for r in records],
-            "loader_wait_share_per_epoch": [r["loader_wait_s"] / r["train_s"] for r in records],
-            "train_s_per_epoch": [r["train_s"] for r in records],
-            "train_loss_per_epoch": [r["loss"] for r in records],
-            "test_loss_per_epoch": [r["test_loss"] for r in records],
-            "resumed_at": {"epoch": records[1]["epoch"], "step": records[1]["start_step"]},
-            "final_step": second.step, "peak_mem_gib": peak, "launches": launches,
-            "traced_steps": [LOOP_STEPS, 2 * LOOP_STEPS], **share,
-            "pth_tar_round_trip": "bit-exact",
-        }
-    finally:
-        if os.path.exists(log_path):
-            with open(log_path) as f:
-                tail = [ln for ln in f.read().splitlines() if "|" not in ln][-30:]
-            print("\n".join(["== run_pretraining log (tail, no parameter table)"] + tail),
-                  file=sys.stderr)
-        shutil.rmtree(model_dir, ignore_errors=True)
+    # .pth.tar export of the final state, then each import: the same bits
+    path = os.path.join(model_dir, "export.pth.tar")
+    export_pth_tar(path, second.model, bank=second.bank, epoch=second.epoch,
+                   optimizer=second.optimizer)
+    model_sd = import_model_pth_tar(path)
+    own = second.model.state_dict()
+    require(sorted(model_sd) == sorted(own) and all(
+        torch.equal(model_sd[k], own[k].cpu()) for k in own), "model round trip differs")
+    bank = import_criterion_pth_tar(path, "cuda")
+    require(torch.equal(bank.view1_mem, second.bank.view1_mem)
+            and torch.equal(bank.view2_mem, second.bank.view2_mem)
+            and torch.equal(bank.z, second.bank.z), "bank round trip differs")
+    fresh = torch.optim.Adam(second.model.parameters(), lr=1.0)
+    import_optimizer_pth_tar(path, second.model, fresh)
+    for p in second.model.parameters():
+        a, b = fresh.state[p], second.optimizer.state[p]
+        require(all(torch.equal(a[k].to(b[k].device), b[k])
+                    for k in ("step", "exp_avg", "exp_avg_sq")), "Adam round trip differs")
+    return {
+        "clips_per_sec_per_epoch": [r["clips"] / r["train_s"] for r in records],
+        "loader_wait_share_per_epoch": [r["loader_wait_s"] / r["train_s"] for r in records],
+        "train_s_per_epoch": [r["train_s"] for r in records],
+        "train_loss_per_epoch": [r["loss"] for r in records],
+        "test_loss_per_epoch": [r["test_loss"] for r in records],
+        "resumed_at": {"epoch": records[1]["epoch"], "step": records[1]["start_step"]},
+        "final_step": second.step, "peak_mem_gib": peak, "launches": launches,
+        "traced_steps": [LOOP_STEPS, 2 * LOOP_STEPS], **share,
+        "pth_tar_round_trip": "bit-exact",
+    }
+
+
+def run_cma_loop(model_dir: str) -> dict:
+    """The pretraining entry point on the Kinetics AVID-CMA YAML, warm-
+    started from the AVID loop phase's run directory in ``model_dir``
+    (model, banks and Z), re-mining every epoch: one epoch, then a resume
+    for a second; Z, the mining at each epoch's start, the last
+    checkpoint's positive set and each kernel's launches over both runs."""
+    avid_run = os.path.join(model_dir, "Cross-N1024")
+    avid_z = import_criterion_run(avid_run).z
+    chain = [f"model.args.checkpoint={avid_run}", f"loss.args.checkpoint={avid_run}",
+             "loss.args.resample_freq=1"]
+    records = []
+    with loop_log(os.path.join(model_dir, "cma_stdout.log"), "run_pretraining (AVID-CMA)"):
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        first = run_pretraining(_loop_config(model_dir, chain, CMA_LOOP_CONFIG),
+                                device="cuda", on_epoch=records.append)
+        require((first.step, first.epoch) == (LOOP_STEPS, 1),
+                f"first CMA run ended at step {first.step}, epoch {first.epoch}")
+        first_z = first.bank.z.cpu()
+        del first
+        second = run_pretraining(
+            _loop_config(model_dir, chain + ["resume=true", "optimizer.num_epochs=2"],
+                         CMA_LOOP_CONFIG), device="cuda", on_epoch=records.append)
+        torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    require([(r["epoch"], r["start_step"], r["steps"]) for r in records]
+            == [(0, 0, LOOP_STEPS), (1, LOOP_STEPS, LOOP_STEPS)],
+            f"CMA epochs run {[(r['epoch'], r['start_step'], r['steps']) for r in records]}")
+    require(second.step == 2 * LOOP_STEPS and second.epoch == 2,
+            f"second CMA run ended at step {second.step}, epoch {second.epoch}")
+    require([r["mine_s"] is not None for r in records] == [True, True],
+            f"mining before each epoch {[r['mine_s'] for r in records]}: the first run must "
+            "mine, the resumed one re-mine at epoch 1")
+    losses = [v for r in records for v in (r["loss"], r["test_loss"])]
+    require(all(v is not None and np.isfinite(v) for v in losses), f"CMA losses {losses}")
+    require(float(avid_z) > 0 and torch.equal(first_z, avid_z)
+            and torch.equal(second.bank.z.cpu(), avid_z),
+            f"Z {float(second.bank.z)} is not the AVID run's {float(avid_z)}")
+    require(launches == EXPECTED_CMA_LOOP_LAUNCHES,
+            f"kernel launches of the CMA loop {launches}, expected {EXPECTED_CMA_LOOP_LAUNCHES}")
+    mgr = CheckpointManager(os.path.join(model_dir, "InstX-N1024-PosW-N64-Top32", "checkpoints"))
+    require(mgr.latest_step() == 2 * LOOP_STEPS, f"latest CMA checkpoint {mgr.latest_step()}")
+    saved = torch.load(mgr.path(mgr.latest_step()), map_location="cpu", weights_only=False)
+    pos = saved["bank"]["positive_set"]
+    n = second.bank.view1_mem.shape[0]
+    check_positive_set(pos, n, second.bank.positive_set.shape[1])
+    require(torch.equal(pos, second.bank.positive_set.cpu()),
+            "checkpoint positive set differs from the state")
+    return {
+        "clips_per_sec_per_epoch": [r["clips"] / r["train_s"] for r in records],
+        "loader_wait_share_per_epoch": [r["loader_wait_s"] / r["train_s"] for r in records],
+        "mine_s_per_epoch": [r["mine_s"] for r in records],
+        "train_s_per_epoch": [r["train_s"] for r in records],
+        "train_loss_per_epoch": [r["loss"] for r in records],
+        "test_loss_per_epoch": [r["test_loss"] for r in records],
+        "z_from_avid_run": float(avid_z), "bank_rows": n,
+        "final_step": second.step, "peak_mem_gib": peak, "launches": launches,
+    }
 
 
 def main() -> None:
@@ -827,6 +1113,7 @@ def main() -> None:
     check_r2p1d_pair(results)
     check_small_step()
     check_small_eval()
+    check_small_cma_step()
     torch.cuda.empty_cache()
 
     run = run_slice()
@@ -841,10 +1128,27 @@ def main() -> None:
     print(json.dumps({"card": smi, "config": "crop+color train preprocessing b32 8x224^2 "
                       "from 256x320, random jitter order", **cc}), flush=True)
     torch.cuda.empty_cache()
-    loop = run_loop()
-    print(json.dumps({"card": smi, "config": "run_pretraining Cross-N1024.yaml "
-                      "R2Plus1D-18+Conv2D-10 b32 8x224^2, synthetic 160 clips from 256x342, "
-                      "threaded loader x4, 1 epoch + resume to 2", **loop}), flush=True)
+    cma = run_cma_slice()
+    print(json.dumps({"card": smi, "config": "AVID-CMA InstX-N1024-PosW-N64-Top32 "
+                      "R2Plus1D-18+Conv2D-10 b32 8x224^2, N=232067, 1024 negatives (64 "
+                      "within), top-32 consensus positives", **cma}), flush=True)
+    torch.cuda.empty_cache()
+    # the AVID loop phase's run directory is the AVID-CMA loop phase's warm start
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        loop = run_loop(model_dir)
+        print(json.dumps({"card": smi, "config": "run_pretraining Cross-N1024.yaml "
+                          "R2Plus1D-18+Conv2D-10 b32 8x224^2, synthetic 160 clips from "
+                          "256x342, threaded loader x4, 1 epoch + resume to 2", **loop}),
+              flush=True)
+        torch.cuda.empty_cache()
+        cma_loop = run_cma_loop(model_dir)
+        print(json.dumps({"card": smi, "config": "run_pretraining "
+                          "InstX-N1024-PosW-N64-Top32.yaml (AVID-CMA) from the Cross-N1024 "
+                          "run, synthetic 160 clips, re-mined every epoch, 1 epoch + resume "
+                          "to 2", **cma_loop}), flush=True)
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
 
     # each kernel's launches on the main path: the pretraining entry point's
     # two runs (train steps run K1-K4, its test phases K1, K2, K4 and K5)

@@ -1,10 +1,13 @@
 #!/usr/bin/env python
-"""AVID pretraining on one NVIDIA card: the PyTorch/CUDA port's entry point.
+"""AVID and AVID-CMA pretraining on one NVIDIA card: the PyTorch/CUDA port's entry point.
 
 Usage (the arguments of main_avid.py, plus --device):
     python main_avid_torch.py configs/main/avid/kinetics/Cross-N1024.yaml
     python main_avid_torch.py <cfg.yaml> --debug --set dataset.backend=synthetic
     python main_avid_torch.py configs/smoke/avid-synthetic.yaml --debug --device cpu
+    python main_avid_torch.py configs/main/avid-cma/kinetics/InstX-N1024-PosW-N64-Top32.yaml \
+        --set model.args.checkpoint=<AVID run dir or .pth.tar> \
+        --set loss.args.checkpoint=<AVID run dir or .pth.tar>
 
 Runs on the card by default and raises when none is present; --device cpu
 runs the plain PyTorch versions of the kernels. Checkpoints go to

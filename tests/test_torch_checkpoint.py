@@ -3,22 +3,31 @@ the JAX package's: JAX ``export_pth_tar`` of flax weights, Adam moments
 and banks, and the port's ``export_pth_tar`` of the same values carried
 over by ``flax_to_port_state``, write the same keys, shapes and values;
 the port's ``import_*_pth_tar`` read both files back bit for bit; and the
-``CheckpointManager`` round trip, retention and milestones."""
+``CheckpointManager`` round trip, retention and milestones; an AVID-CMA
+state's positive set through the manager (and its absence from an AVID
+checkpoint refused), the AVID -> AVID-CMA warm start from a port run's
+directory (``import_model_run`` / ``import_criterion_run``, which raise
+naming a path that holds no checkpoint), and a CMA state's ``.pth.tar``
+equal to the JAX package's, without the positive set."""
 
 import numpy as np
+import pytest
 import torch
 
 from avid_cma_tpu.criterions.avid import BankState as JaxBankState
 from avid_cma_tpu.train.checkpoint import export_pth_tar as jax_export_pth_tar
 from avid_cma_tpu.train.checkpoint import torch_state_to_flax
 from avid_cma_tpu_torch.criterions.avid import BankState
+from avid_cma_tpu_torch.criterions.avid_cma import CMAState, cma_state_from_bank
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
 from avid_cma_tpu_torch.train.checkpoint import (
     CheckpointManager,
     export_pth_tar,
     flax_to_port_state,
     import_criterion_pth_tar,
+    import_criterion_run,
     import_model_pth_tar,
+    import_model_run,
     import_optimizer_pth_tar,
 )
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
@@ -136,3 +145,48 @@ def test_manager_round_trip_retention_and_milestones(tmp_path):
     assert b.scheduler.state_dict() == a.scheduler.state_dict()
     assert torch.equal(b.bank.view1_mem, a.bank.view1_mem) and float(b.bank.z) == -1.0
     assert torch.equal(torch.rand(4, generator=b.generator), torch.rand(4, generator=a.generator))
+
+
+def test_cma_state_round_trip_and_warm_start_from_a_run(tmp_path):
+    a = _state(0)
+    pos = torch.sort(torch.randint(0, N, (N, 3), generator=torch.Generator().manual_seed(1)),
+                     dim=1).values
+    a.bank = cma_state_from_bank(a.bank, pos)
+    a.bank.z = torch.tensor(2.5)
+    run = tmp_path / "run"
+    CheckpointManager(str(run / "checkpoints")).save(4, a, {"epoch": 1, "batch": 0})
+
+    # a CMA state restores the positive set; an AVID checkpoint has none
+    b = _state(1)
+    b.bank = cma_state_from_bank(b.bank, torch.zeros_like(pos))
+    CheckpointManager(str(run / "checkpoints")).restore(b)
+    assert isinstance(b.bank, CMAState) and torch.equal(b.bank.positive_set, pos)
+    avid = _state(2)
+    CheckpointManager(str(tmp_path / "avid")).save(1, avid, {"epoch": 0, "batch": 0})
+    with pytest.raises(KeyError, match="positive set"):
+        CheckpointManager(str(tmp_path / "avid")).restore(b)
+
+    # the AVID -> CMA warm start: the run's directory or its checkpoints/
+    for path in (run, run / "checkpoints"):
+        bank = import_criterion_run(str(path))
+        assert type(bank) is BankState and float(bank.z) == 2.5
+        assert torch.equal(bank.view1_mem, a.bank.view1_mem)
+        assert torch.equal(bank.view2_mem, a.bank.view2_mem)
+        _equal(import_model_run(str(path)), a.model.state_dict(), "model")
+    (tmp_path / "empty").mkdir()
+    for path in (tmp_path / "empty", tmp_path / "missing"):
+        with pytest.raises(FileNotFoundError, match=str(path)):
+            import_model_run(str(path))
+        with pytest.raises(FileNotFoundError, match=str(path)):
+            import_criterion_run(str(path))
+
+    # the .pth.tar of a CMA state: banks + Z, no positive set, as the JAX export
+    export_pth_tar(str(tmp_path / "port.pth.tar"), a.model, bank=a.bank)
+    jax_bank = JaxBankState(view1_mem=a.bank.view1_mem.numpy(),
+                            view2_mem=a.bank.view2_mem.numpy(), z=np.float32(2.5))
+    jax_export_pth_tar(torch_state_to_flax({k: v.numpy() for k, v in
+                                            a.model.state_dict().items()}),
+                       str(tmp_path / "jax.pth.tar"), bank=jax_bank)
+    got = torch.load(tmp_path / "port.pth.tar", weights_only=False)["train_criterion"]
+    _equal(got, torch.load(tmp_path / "jax.pth.tar", weights_only=False)["train_criterion"],
+           "train_criterion")

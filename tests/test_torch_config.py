@@ -3,7 +3,10 @@ against PyYAML and the JAX package's config: its YAML reader equals
 ``yaml.safe_load`` on every file under configs/ and on a list of tricky
 documents, its ``_coerce`` equals JAX's on override strings, what its
 writer emits reads back equal with both readers, and the ``Config`` of
-Cross-N1024.yaml gives the ``PretrainConfig`` of the published recipe."""
+Cross-N1024.yaml gives the ``PretrainConfig`` of the published recipe;
+the Kinetics AVID-CMA YAML gives its recipe and the JAX package's
+criterion config, and the AudioSet AVID-CMA YAML, which needs sharded
+banks and approximate mining, is refused naming both."""
 
 import dataclasses
 import math
@@ -13,13 +16,17 @@ import pytest
 import yaml
 
 from avid_cma_tpu import config as jax_config
+from avid_cma_tpu.train.builders import build_criterion_config
 from avid_cma_tpu_torch import config as port_config
 from avid_cma_tpu_torch import yaml_lite
+from avid_cma_tpu_torch.criterions.avid_cma import AVIDCMAConfig
 from avid_cma_tpu_torch.train.builders import (
     build_preprocess_config,
+    kinetics_cma,
     kinetics_cross_n1024,
     pretrain_config,
 )
+from avid_cma_tpu_torch.train.loop import check_ported
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = sorted((REPO / "configs").rglob("*.yaml"))
@@ -106,3 +113,40 @@ def test_cross_n1024_yaml_gives_the_recipe():
     lin = port_config.load(str(REPO / "configs/benchmark/kinetics/8x224x224-linear.yaml"))
     pp = build_preprocess_config(lin.dataset)
     assert (pp.transform, pp.resize, pp.color) == ("crop+color", (256, 256), (0.4, 0.4, 0.4, 0.2))
+
+
+def test_kinetics_cma_yaml_gives_the_recipe():
+    path = REPO / "configs/main/avid-cma/kinetics/InstX-N1024-PosW-N64-Top32.yaml"
+    cfg = port_config.load(str(path))
+    y = yaml.safe_load(path.read_text())
+    loss, sampling = y["loss"]["args"], y["loss"]["args"]["sampling_args"]
+    one_card = pretrain_config(cfg)
+    assert one_card.loss == "AVID_CMA" and one_card.batch_size == y["dataset"]["batch_size"]
+    assert (one_card.num_data, one_card.num_negatives, one_card.num_negatives_within,
+            one_card.momentum, one_card.resample_freq) == (
+        loss["num_data"], loss["num_negatives"], loss["num_negatives_within"],
+        loss["momentum"], loss["resample_freq"])
+    assert (one_card.xModalInstCoeff, one_card.wModalInstCoeff, one_card.xModalPosCoeff,
+            one_card.wModalPosCoeff) == (loss["xModalInstCoeff"], loss["wModalInstCoeff"],
+                                         loss["xModalPosCoeff"], loss["wModalPosCoeff"])
+    assert (one_card.pos_k, one_card.sampling_type, one_card.mining_exact) == (
+        sampling["pos_k"], sampling["type"], True)
+    assert list(one_card.milestones) == y["optimizer"]["lr"]["milestones"]
+    # the published recipe split its 256 clips over 8 GPUs
+    assert dataclasses.replace(one_card, num_replicas=8) == kinetics_cma()
+    crit = kinetics_cma().criterion(128)
+    assert isinstance(crit, AVIDCMAConfig)
+    ref = build_criterion_config(jax_config.from_dict(y)["loss"], embedding_dim=128)
+    assert dataclasses.asdict(crit) == dataclasses.asdict(ref)
+    # the hyphenated spelling is the same loss
+    cfg.loss["name"] = "AVID-CMA"
+    assert pretrain_config(cfg).loss == "AVID_CMA"
+
+
+def test_audioset_cma_yaml_raises_naming_its_gaps():
+    cfg = port_config.load(str(REPO / "configs/main/avid-cma/audioset/"
+                                      "InstX-N1024-PosW-N64-Top32.yaml"))
+    assert pretrain_config(cfg).mining_exact is False
+    with pytest.raises(NotImplementedError, match="exact: false") as e:
+        check_ported(cfg)
+    assert "bank_sharding" in str(e.value) and "A6" in str(e.value) and "A8" in str(e.value)

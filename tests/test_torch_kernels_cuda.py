@@ -3,7 +3,9 @@ card, at small and ragged shapes the chip check does not cover (partial
 tiles, narrow channels, D < 128, out-of-range indices, one or three
 frames, 7^2 and 9^2 planes), plus the wrappers' input checks, launch
 counters, and the channels-last layouts that reach K2 and K5 without a
-copy.
+copy; and the AVID-CMA path: K4 at its index shapes, the mining sweep on
+the card against the CPU, and one CMA train step on the card against the
+CPU.
 
 Needs an NVIDIA card; skips without one. Imports no JAX, so it runs on a
 card host without it:
@@ -472,3 +474,92 @@ def test_device_prefetch_orders_the_kernels_after_the_copy(dev):
         ref = stft.log_spectrogram(torch.from_numpy(src["audio"]), **kw)
         assert float((got.cpu() - ref).abs().max()) < 1e-4
         assert torch.equal(b["frames"].cpu(), torch.from_numpy(src["frames"]))
+
+
+# AVID-CMA: K4 at the positives' K = 32 and the within-modal negatives'
+# K = 64 (a contiguous copy of a 1024-column draw's first 64 columns, as
+# cma_forward passes them); the slice itself, not contiguous, is refused
+@pytest.mark.parametrize("k,cols", [(32, 32), (64, 1024)], ids=["k32", "k64-of-1024"])
+def test_nce_scores_at_the_cma_index_shapes(dev, k, cols):
+    rng = np.random.default_rng(21)
+    bank = torch.nn.functional.normalize(
+        torch.from_numpy(rng.standard_normal((5000, 128), dtype=np.float32)).to(dev), dim=1)
+    q = torch.from_numpy(rng.standard_normal((32, 128), dtype=np.float32)).to(dev)
+    full = torch.from_numpy(rng.integers(0, 5000, (32, cols))).to(dev)
+    idx = full[:, :k].contiguous()
+    before = _lib.LAUNCHES["nce_gather"]
+    got = nce_gather.scores(bank, idx, q, 0.07)
+    assert _lib.LAUNCHES["nce_gather"] == before + 1
+    ref = nce_gather.plain_scores(bank, idx, q, 0.07)
+    assert got.shape == (32, k)
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1.3e-5
+    if k < cols:
+        with pytest.raises(ValueError, match="contiguous"):
+            nce_gather.scores(bank, full[:, :k], q, 0.07)
+
+
+def test_mining_on_the_card_matches_the_cpu(dev):
+    """Every agreement type at a ragged N (1000 rows, tiles of 256): the
+    card's set equals the CPU's, except rows whose k-th and (k+1)-th
+    agreement, recomputed in f64, lie within 1e-6 (the two sum the f32
+    products in other orders)."""
+    from avid_cma_tpu_torch.criterions import mining
+
+    rng = np.random.default_rng(22)
+    banks = rng.standard_normal((2, 1000, 128)).astype(np.float32)
+    banks /= np.linalg.norm(banks, axis=2, keepdims=True)
+    cpu_banks = [torch.from_numpy(b) for b in banks]
+    for kind in mining.AGREEMENT_TYPES:
+        got = mining.mine_positives(*(b.to(dev) for b in cpu_banks), 16, kind, tile=256)
+        assert got.is_cuda and got.dtype == torch.int64
+        want = mining.mine_positives(*cpu_banks, 16, kind, tile=256)
+        differ = (got.cpu() != want).any(dim=1).nonzero().flatten()
+        if differ.numel():
+            gaps = mining.boundary_gap(*cpu_banks, differ, 16, kind)
+            assert float(gaps.max()) < 1e-6, (kind, differ.tolist(), gaps.tolist())
+
+
+def test_cma_step_on_the_card_matches_the_cpu(dev):
+    """One AVID-CMA train step (R2Plus1D-10 + Conv2D-10, B=4, 8 x 64^2,
+    N=256, pos_k 8, 32 negatives, 8 within) on the card and on the CPU
+    from the same weights, banks, positive set and negatives: loss and Z
+    within 2%, the touched bank rows within cosine 0.99; 8 K4 launches."""
+    from avid_cma_tpu_torch.criterions import avid_cma, mining
+    from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
+    from avid_cma_tpu_torch.ops.sampling import rank_shift
+    from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
+    from avid_cma_tpu_torch.train.state import TrainState
+    from avid_cma_tpu_torch.train.step import make_train_step
+
+    rng = np.random.default_rng(23)
+    n, k, pos_k, b = 256, 32, 8, 4
+    banks = rng.standard_normal((2, n, 128)).astype(np.float32)
+    banks /= np.linalg.norm(banks, axis=2, keepdims=True)
+    pos = mining.mine_positives(*(torch.from_numpy(m) for m in banks), pos_k)
+    batch = {"frames": rng.standard_normal((b, 8, 64, 64, 3), dtype=np.float32),
+             "audio": rng.standard_normal((b, 40, 257, 1), dtype=np.float32),
+             "index": rng.choice(n, b, replace=False)}
+    y = torch.from_numpy(batch["index"])
+    negs = rank_shift(torch.from_numpy(rng.integers(0, n - pos_k, (b, k))), pos[y])
+    crit = avid_cma.AVIDCMAConfig(num_data=n, num_negatives=k, num_negatives_within=8,
+                                  pos_k=pos_k)
+    out = {}
+    for d in ("cpu", dev):
+        model = av_wrapper("R2Plus1D", {"depth": 10}, "Conv2D", {"depth": 10},
+                           proj_dim=[512, 512, 128], seed=0, device=d)
+        opt = build_optimizer(model.parameters(), "adam", 2e-4, weight_decay=1e-5)
+        bank = avid_cma.CMAState(*(torch.from_numpy(m.copy()).to(d) for m in banks),
+                                 z=torch.tensor(-1.0, device=d), positive_set=pos.to(d))
+        state = TrainState(model, opt, multistep_scheduler(opt, [], 1.0), bank,
+                           torch.Generator(device=d))
+        before = _lib.LAUNCHES["nce_gather"]
+        m = make_train_step(crit)(state, {key: torch.from_numpy(v).to(d)
+                                          for key, v in batch.items()}, neg_idx=negs.to(d))
+        launched = _lib.LAUNCHES["nce_gather"] - before
+        assert launched == (0 if d == "cpu" else 8)
+        out[str(d)] = (float(m["loss"]), float(state.bank.z),
+                       state.bank.view2_mem[y.to(d)].cpu())
+    card, cpu = out[str(dev)], out["cpu"]
+    assert abs(card[0] - cpu[0]) / abs(cpu[0]) <= 2e-2
+    assert abs(card[1] - cpu[1]) / abs(cpu[1]) <= 2e-2
+    assert float((card[2] * cpu[2]).sum(1).min()) >= 0.99

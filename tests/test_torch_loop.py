@@ -5,7 +5,11 @@ equal one epoch plus a resume, and a mid-epoch resume equals the straight
 run, bit for bit (weights, Adam state, banks, Z, step); a profile_steps
 window writes its trace; what is not ported raises naming its ROADMAP
 item; the entry script raises without a card unless --device cpu is
-given."""
+given. AVID-CMA (pos_k 4, 8 negatives, 4 within, re-mined every epoch):
+a run chained from a tiny AVID run's directory equals one chained from
+its exported .pth.tar, with the AVID run's Z; resumed runs equal the
+straight run bit for bit, positive set included, at an epoch boundary
+that re-mines and mid-epoch."""
 
 import pathlib
 import runpy
@@ -15,6 +19,7 @@ import pytest
 import torch
 
 from avid_cma_tpu_torch.config import from_dict
+from avid_cma_tpu_torch.train.checkpoint import export_pth_tar
 from avid_cma_tpu_torch.train.loop import run_pretraining
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -90,15 +95,96 @@ def test_resumed_runs_equal_the_straight_run(tmp_path):
     _same_state(resumed_mid, straight)
 
 
-@pytest.mark.parametrize("name", ["AVID-CMA", "AVID_CMA"])
-def test_cma_raises_naming_a5(tmp_path, name):
-    cfg = _cfg(tmp_path, 1)
-    cfg.loss["name"] = name
-    with pytest.raises(NotImplementedError, match="A5"):
-        run_pretraining(cfg, device="cpu")
+def test_sharded_bank_raises_naming_a6(tmp_path):
     cfg = _cfg(tmp_path, 1)
     cfg.loss["bank_sharding"] = "sharded"
     with pytest.raises(NotImplementedError, match="A6"):
+        run_pretraining(cfg, device="cpu")
+
+
+def _cma_cfg(model_dir, epochs, checkpoint=None, **top):
+    cfg = _cfg(model_dir, epochs, **top)
+    cfg.model["name"] = "cma"
+    cfg.loss = from_dict({"name": "AVID_CMA", "args": {
+        "num_data": 16, "num_negatives": 8, "num_negatives_within": 4, "momentum": 0.5,
+        "xModalInstCoeff": 1.0, "wModalInstCoeff": 0.0, "xModalPosCoeff": 0.0,
+        "wModalPosCoeff": 1.0, "resample_freq": 1,
+        "sampling_args": {"type": "consensus", "pos_k": 4}}})
+    if checkpoint is not None:
+        cfg.model["args"]["checkpoint"] = str(checkpoint)
+        cfg.loss["args"]["checkpoint"] = str(checkpoint)
+    return cfg
+
+
+def _valid_positive_set(pos, n=16, pos_k=4):
+    assert pos.shape == (n, pos_k) and pos.dtype == torch.int64
+    assert bool((pos[:, 1:] > pos[:, :-1]).all()) and int(pos.min()) >= 0 and int(pos.max()) < n
+    assert not bool((pos == torch.arange(n)[:, None]).any())
+
+
+def test_cma_chained_from_an_avid_run_and_from_its_pth_tar(tmp_path):
+    avid = run_pretraining(_cfg(tmp_path / "avid", 1), device="cpu")
+    run_dir = tmp_path / "avid" / "loop"
+    export_pth_tar(str(tmp_path / "avid.pth.tar"), avid.model, bank=avid.bank,
+                   epoch=avid.epoch, optimizer=avid.optimizer)
+    epochs = []
+    from_dir = run_pretraining(_cma_cfg(tmp_path / "a", 1, run_dir), device="cpu",
+                               on_epoch=epochs.append)
+    from_file = run_pretraining(_cma_cfg(tmp_path / "b", 1, tmp_path / "avid.pth.tar"),
+                                device="cpu")
+    # Z comes back from the AVID run bit for bit and stays frozen
+    assert float(avid.bank.z) > 0
+    for run in (from_dir, from_file):
+        assert torch.equal(run.bank.z, avid.bank.z)
+        _valid_positive_set(run.bank.positive_set)
+    _same_state(from_dir, from_file)
+    assert torch.equal(from_dir.bank.positive_set, from_file.bank.positive_set)
+    assert epochs[0]["mine_s"] is not None and epochs[0]["test_loss"] == epochs[0]["test_loss"]
+    log = (tmp_path / "a" / "cma" / "train.log").read_text()
+    assert f"restored banks from port run {run_dir}" in log and "mining CMA positives" in log
+    # the run started from the AVID weights, not from its own seed
+    fresh = run_pretraining(_cma_cfg(tmp_path / "c", 1), device="cpu")
+    assert not torch.equal(fresh.bank.view1_mem, from_dir.bank.view1_mem)
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        run_pretraining(_cma_cfg(tmp_path / "d", 1, tmp_path / "a"), device="cpu")
+
+
+def test_cma_resumed_runs_equal_the_straight_run(tmp_path):
+    epochs = []
+    straight = run_pretraining(_cma_cfg(tmp_path / "a", 2, save_freq_steps=1), device="cpu",
+                               on_epoch=epochs.append)
+    assert straight.step == 4 and straight.epoch == 2
+    # mined before epoch 0, re-mined at the start of epoch 1 (resample_freq 1)
+    assert [e["mine_s"] is not None for e in epochs] == [True, True]
+    _valid_positive_set(straight.bank.positive_set)
+    ckpts = tmp_path / "a" / "cma" / "checkpoints"
+
+    # the epoch boundary: the checkpoint holds the set from before the
+    # re-mine; the resumed run re-mines at epoch 1
+    run_pretraining(_cma_cfg(tmp_path / "b", 1), device="cpu")
+    resumed_epochs = []
+    resumed = run_pretraining(_cma_cfg(tmp_path / "b", 2, resume=True), device="cpu",
+                              on_epoch=resumed_epochs.append)
+    assert [e["mine_s"] is not None for e in resumed_epochs] == [True]
+    _same_state(resumed, straight)
+    assert torch.equal(resumed.bank.positive_set, straight.bank.positive_set)
+
+    # mid-epoch (step 3: epoch 1, one batch in): the checkpoint's set is kept
+    mid = tmp_path / "c" / "cma" / "checkpoints"
+    mid.mkdir(parents=True)
+    shutil.copy(ckpts / "ckpt-000000003.pt", mid)
+    mid_epochs = []
+    resumed_mid = run_pretraining(_cma_cfg(tmp_path / "c", 2, resume=True), device="cpu",
+                                  on_epoch=mid_epochs.append)
+    assert [e["mine_s"] for e in mid_epochs] == [None]
+    _same_state(resumed_mid, straight)
+    assert torch.equal(resumed_mid.bank.positive_set, straight.bank.positive_set)
+
+
+def test_approximate_mining_raises_naming_it(tmp_path):
+    cfg = _cma_cfg(tmp_path, 1)
+    cfg.loss["args"]["sampling_args"]["exact"] = False
+    with pytest.raises(NotImplementedError, match="exact: false"):
         run_pretraining(cfg, device="cpu")
 
 

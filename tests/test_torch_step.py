@@ -45,7 +45,7 @@ from avid_cma_tpu.train.step import make_train_step as jax_make_train_step
 from avid_cma_tpu_torch.criterions.avid import AVIDConfig, BankState
 from avid_cma_tpu_torch.device import resolve_device
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
-from avid_cma_tpu_torch.scripts import r2p1d_block_bench, train_clips
+from avid_cma_tpu_torch.scripts import criterion_cost, r2p1d_block_bench, train_clips
 from avid_cma_tpu_torch.train.builders import build_eval, build_pretrain, kinetics_cross_n1024
 from avid_cma_tpu_torch.train.checkpoint import flax_to_port_state
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
@@ -214,7 +214,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         build_eval(_small_cfg())
     monkeypatch.setattr("sys.argv", ["script"])
-    for script in (r2p1d_block_bench, train_clips):
+    for script in (r2p1d_block_bench, train_clips, criterion_cost):
         with pytest.raises(RuntimeError, match="cuda"):
             script.main()
 
