@@ -37,3 +37,14 @@ def set_full_f32_precision() -> None:
     f32 arithmetic (avid_cma_tpu/ops/pallas/spectrogram.py:62-63)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def prepare_device(device: str | torch.device = "cuda") -> torch.device:
+    """``resolve_device``, then the backend state every entry point runs
+    under: TF32 off and, on the card, cuDNN's autotuner on (the shapes of
+    a run are fixed, so each convolution is tuned once)."""
+    dev = resolve_device(device)
+    set_full_f32_precision()
+    if dev.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+    return dev

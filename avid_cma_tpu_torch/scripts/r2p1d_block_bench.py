@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from avid_cma_tpu_torch.device import resolve_device, set_full_f32_precision
+from avid_cma_tpu_torch.device import prepare_device
 from avid_cma_tpu_torch.ops.kernels.r2p1d_pair import plain_pair, r2p1d_pair
 
 # the stride-1 (2+1)D pairs of R2Plus1D-18 at 8 x 224^2, 32 clips: (B, T, H, W, C)
@@ -112,8 +112,7 @@ def main() -> None:
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = p.parse_args()
-    dev = resolve_device("cuda")
-    set_full_f32_precision()
+    dev = prepare_device("cuda")  # the entry points' state: cuDNN autotuned
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

@@ -27,7 +27,7 @@ from avid_cma_tpu_torch.criterions.avid_cma import AVIDCMAConfig
 from avid_cma_tpu_torch.data.loader import CachedDataLoader, DataLoader, MultiprocessDataLoader
 from avid_cma_tpu_torch.data.pipelines import PreprocessConfig
 from avid_cma_tpu_torch.registry import DATASETS
-from avid_cma_tpu_torch.device import resolve_device, set_full_f32_precision
+from avid_cma_tpu_torch.device import prepare_device
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
@@ -358,10 +358,7 @@ def build_dataloader(dataset, db_cfg: Config, split_cfg: Config, num_workers: in
 
 def _build_state(cfg: PretrainConfig, device: str | torch.device
                  ) -> Tuple[TrainState, Union[AVIDConfig, AVIDCMAConfig]]:
-    dev = resolve_device(device)
-    set_full_f32_precision()
-    if dev.type == "cuda":
-        torch.backends.cudnn.benchmark = True  # fixed shapes: tune once
+    dev = prepare_device(device)
     model = av_wrapper(
         cfg.video_backbone, {"depth": cfg.video_depth},
         cfg.audio_backbone, {"depth": cfg.audio_depth},

@@ -109,6 +109,35 @@ def flax_to_port_state(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_eval_to_port_state(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX eval wrappers' variables (``ClassificationWrapper``,
+    ``MOSTModel``) -> the port's eval wrapper state_dict: the backbone
+    under ``feature_extractor.`` with ``flax_to_port_state``'s video keys,
+    each head's Dense kernel as an (O, I) ``weight`` and its BatchNorm as
+    ``weight, bias, running_mean, running_var``
+    (``classifier.weight``, ``classifier_conv5x.bn.running_var``)."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    backbone = flax_to_port_state({
+        "params": {"video_model": params["feature_extractor"]},
+        "batch_stats": {"video_model": stats.get("feature_extractor", {})}})
+    out = {"feature_extractor." + k.split(".", 1)[1]: v for k, v in backbone.items()}
+
+    def walk(path, node):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(path + [k], v)
+            elif k == "kernel":
+                out[".".join(path + ["weight"])] = torch.from_numpy(
+                    np.array(to_torch_weight(np.asarray(v)), dtype=np.float32))
+            else:
+                out[".".join(path + [_BN_SUFFIX[k]])] = torch.from_numpy(
+                    np.array(v, dtype=np.float32))
+
+    for tree in (params, stats):
+        walk([], {k: v for k, v in tree.items() if k != "feature_extractor"})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the reference's .pth.tar layout
 # ---------------------------------------------------------------------------
@@ -259,11 +288,14 @@ def _atomic_save(obj: Any, path: str) -> None:
 
 
 def state_payload(state: TrainState, loader_position: Dict[str, int]) -> Dict[str, Any]:
-    """Everything a resume needs, as one ``torch.save``-able dict."""
-    bank = {"view1_mem": state.bank.view1_mem, "view2_mem": state.bank.view2_mem,
-            "z": state.bank.z}
-    if isinstance(state.bank, CMAState):
-        bank["positive_set"] = state.bank.positive_set
+    """Everything a resume needs, as one ``torch.save``-able dict (an
+    eval run's state has no banks)."""
+    bank = None
+    if state.bank is not None:
+        bank = {"view1_mem": state.bank.view1_mem, "view2_mem": state.bank.view2_mem,
+                "z": state.bank.z}
+        if isinstance(state.bank, CMAState):
+            bank["positive_set"] = state.bank.positive_set
     return {
         "step": int(state.step), "epoch": int(state.epoch),
         "model": state.model.state_dict(),
@@ -279,18 +311,23 @@ def load_payload(state: TrainState, payload: Dict[str, Any]) -> Dict[str, int]:
     """Restore ``state`` in place from ``state_payload``'s dict; returns
     the loader's position. An AVID-CMA state needs the payload's
     positive set."""
-    dev = state.bank.view1_mem.device
     bank = payload["bank"]
+    if (state.bank is None) != (bank is None):
+        raise KeyError("the checkpoint's banks do not match the state's: "
+                       f"state {type(state.bank).__name__}, checkpoint "
+                       f"{'none' if bank is None else 'banks'}")
     if isinstance(state.bank, CMAState) and "positive_set" not in bank:
         raise KeyError("the checkpoint holds no positive set: it is not an AVID-CMA run's")
     state.model.load_state_dict(payload["model"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.scheduler.load_state_dict(payload["scheduler"])
-    restored = BankState(view1_mem=bank["view1_mem"].to(dev),
-                         view2_mem=bank["view2_mem"].to(dev), z=bank["z"].to(dev))
-    if isinstance(state.bank, CMAState):
-        restored = cma_state_from_bank(restored, bank["positive_set"])
-    state.bank = restored
+    if bank is not None:
+        dev = state.bank.view1_mem.device
+        restored = BankState(view1_mem=bank["view1_mem"].to(dev),
+                             view2_mem=bank["view2_mem"].to(dev), z=bank["z"].to(dev))
+        if isinstance(state.bank, CMAState):
+            restored = cma_state_from_bank(restored, bank["positive_set"])
+        state.bank = restored
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     state.epoch = int(payload["epoch"])

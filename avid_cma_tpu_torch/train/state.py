@@ -5,13 +5,13 @@ the port keeps the same pieces in one mutable object: the model (params
 and BN running stats), the optimizer and its schedule, the banks, the
 generator every random draw of a step comes from, and the global step
 and epoch the loop has reached. For AVID-CMA the banks carry the mined
-positive set (``CMAState``).
+positive set (``CMAState``); the eval runs (finetune, probe) have none.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -24,7 +24,7 @@ class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
-    bank: Union[BankState, CMAState]  # CMAState for AVID-CMA
+    bank: Optional[Union[BankState, CMAState]]  # CMAState for AVID-CMA; None to evaluate
     generator: torch.Generator
     step: int = 0
     epoch: int = 0

@@ -98,7 +98,7 @@ def make_fused_train_step(criterion_cfg: CriterionConfig, pp_cfg: PreprocessConf
 
 
 @contextlib.contextmanager
-def _evaluating(model: torch.nn.Module) -> Iterator[None]:
+def evaluating(model: torch.nn.Module) -> Iterator[None]:
     """Eval mode under ``torch.inference_mode``; the model's train/eval
     mode is restored on exit."""
     was_training = model.training
@@ -125,7 +125,7 @@ def make_eval_loss_step(criterion_cfg: CriterionConfig, seed: int
 
     def step(state: TrainState, batch: Batch, batch_idx: int = 0,
              neg_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        with _evaluating(state.model):
+        with evaluating(state.model):
             y = batch["index"].long()
             v_emb, a_emb = state.model(batch["frames"], batch["audio"])
             gen = None
@@ -159,7 +159,7 @@ def make_embed_fn(model: torch.nn.Module
     forward under ``torch.inference_mode``; the model's mode is restored."""
 
     def embed(video: torch.Tensor, audio: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        with _evaluating(model):
+        with evaluating(model):
             return model(video, audio)
 
     return embed

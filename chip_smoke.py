@@ -7,7 +7,10 @@
 2. holds each kernel (K1 spectrogram, K2/K3 stem pool fwd/bwd, K4 NCE
    gather, K5 fused (2+1)D conv pair) against its plain PyTorch version on
    the card at the shapes of the Kinetics slices (K5 at the four R2Plus1D-18
-   stage shapes), and times kernel and plain version with CUDA events
+   stage shapes) and of the eval paths (K2/K3 on the 32at16 finetune's
+   3.3 GB stem, its first and last images and da/db over all of it; K5
+   at the four stage shapes at 64 and 128 clips, the clip test's and the
+   probe's batches), and times kernel and plain version with CUDA events
    (K1's, K2's and K3's launches also apart, as device intervals in a
    torch.profiler trace; beside K1, cuBLAS's f32 product of its DFT's
    shape as a reference; K3's da/db must be the same bits on two calls).
@@ -74,16 +77,48 @@
    1, a valid positive set in the last checkpoint, and each kernel's
    launches over the two runs; prints clips/s per epoch, the loader-wait
    share and the mining seconds;
-10. prints one JSON line per check, a summary line per slice, the
-   ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+10. runs the eval paths at a small size (R2Plus1D-10, 8 clips of 8 x
+   64^2) on the card and on the CPU from the same weights: a
+   classifier-only warmup step (the backbone frozen: its parameters the
+   same bits, its BN stats moved), a finetune step and a probe step over
+   four pooled taps (the extractor the same bits), each loss within 2% of
+   the CPU's and each step's K2/K3/K5 launches as expected; the finetune
+   step's update is Adam's step on every backbone parameter, its stem
+   gradients on the card equal those through K3's plain version, and its
+   backbone gradient points the CPU's f32 way as far as bf16 allows;
+11. runs the eval slices from their YAMLs at their batch sizes, raw
+   frames at the configs' decode size (256 x 342) on the card, random
+   R2Plus1D-18 weights: ``ucf/8at16-fold1.yaml`` (b64, 101 classes,
+   dropout 0.5) for 1 + 5 warmup steps and 1 + 5 finetune steps, then a
+   clip-test forward; ``ucf/32at16-fold1.yaml`` for 1 + 2 finetune steps at
+   b64 x 32 frames; ``kinetics/8x224x224-linear.yaml`` (b128, crop+color,
+   four taps, 400 classes) for 1 + 5 probe steps. Each: finite losses,
+   the launches a step (warmup K2 1, K3 0, K5 0; finetune 1, 1, 0; test
+   forward and probe 1, 0, 13, so the frozen extractor builds no backward
+   and runs K5 in a training loop), the extractor unchanged; prints
+   clips/s, the device-busy ms a step, the peak memory;
+12. drives the eval entry points chained from the loop phase's AVID run:
+   ``run_action_recognition`` on the 8at16 YAML (a synthetic corpus of 8
+   videos, batch 16, one warmup and one finetune epoch, the 25-clip final
+   test, the dense eval) and ``run_linear_probe`` on the linear YAML (8
+   videos, batch 8, one epoch, the dense eval), each again with
+   ``test_only`` (the same accuracies); checks that each loaded the AVID
+   run's video model bit for bit and each kernel's launches over the four
+   runs (each run's one-clip eval forward that sizes its heads included);
+13. prints one JSON line per check, a summary line per slice, the
+   ``{"kernels": [...]}`` line (launches: the AVID loop phase's and the
+   eval loops') and, last, ``{"ok": true, "device": ...}``.
 
-Every phase raises on failure; nothing is caught. Without a CUDA card the
+Every phase runs under the backend state the entry points set
+(``prepare_device``: TF32 off, cuDNN autotuning on), set before the
+first, and raises on failure; nothing is caught. Without a CUDA card the
 script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import json
 import os
@@ -95,14 +130,21 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from avid_cma_tpu_torch import config as config_lib
 from avid_cma_tpu_torch.criterions import avid_cma, mining
 from avid_cma_tpu_torch.criterions.avid import AVIDConfig, BankState
 from avid_cma_tpu_torch.data.pipelines import preprocess_batch
-from avid_cma_tpu_torch.device import set_full_f32_precision
-from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
+from avid_cma_tpu_torch.device import prepare_device
+from avid_cma_tpu_torch.models.av_wrapper import av_wrapper, init_params
 from avid_cma_tpu_torch.models.blocks import BatchNorm
+from avid_cma_tpu_torch.models.eval_wrappers import (
+    ClassificationWrapper,
+    MOSTModel,
+    classifier_parameters,
+)
+from avid_cma_tpu_torch.models.video import R2Plus1D
 from avid_cma_tpu_torch.ops import stft, video_aug
 from avid_cma_tpu_torch.ops.sampling import rank_shift
 from avid_cma_tpu_torch.ops.kernels import (
@@ -113,6 +155,7 @@ from avid_cma_tpu_torch.ops.kernels import (
     stem_pool,
 )
 from avid_cma_tpu_torch.scripts.r2p1d_block_bench import cudnn_bf16_pair, cudnn_weights
+from avid_cma_tpu_torch.train import builders, eval_loop
 from avid_cma_tpu_torch.train.builders import (
     build_eval,
     build_pretrain,
@@ -125,10 +168,11 @@ from avid_cma_tpu_torch.train.checkpoint import (
     import_criterion_pth_tar,
     import_criterion_run,
     import_model_pth_tar,
+    import_model_run,
     import_optimizer_pth_tar,
 )
 from avid_cma_tpu_torch.train.loop import run_pretraining
-from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
+from avid_cma_tpu_torch.train.optim import build_from_config, build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
 from avid_cma_tpu_torch.train.step import make_embed_fn, make_train_step
 
@@ -156,6 +200,16 @@ NCE_RING = 8
 # the stride-1 (2+1)D pairs of R2Plus1D-18 at 8 x 224^2, 32 clips: (B, T, H, W, C)
 PAIR_SHAPES = {"conv2x": (32, 8, 56, 56, 64), "conv3x": (32, 4, 28, 28, 128),
                "conv4x": (32, 2, 14, 14, 256), "conv5x": (32, 1, 7, 7, 512)}
+# the eval paths' batches at those pairs: the finetune's clip-test forward
+# (64 clips) and the linear probe's frozen extractor (128 clips)
+EVAL_PAIR_SHAPES = {f"{name} b{b}": (b, *shape[1:])
+                    for b in (64, 128) for name, shape in PAIR_SHAPES.items()}
+# the 32at16 finetune's stem activation, 64 clips x 32 frames: 3.3 GB of
+# bf16, past 2^31 bytes, so a 32-bit offset would wrap in its last images.
+# The plain versions' f32 temporaries do not fit at that size: they run on
+# chunks of STEM_CHUNK images.
+STEM_SHAPE_32AT16 = (64 * 32, 112, 112, 64)
+STEM_CHUNK = 128
 
 KERNELS = {
     "spectrogram": dict(
@@ -206,6 +260,31 @@ CMA_LOOP_CONFIG = os.path.join(REPO, "configs/main/avid-cma/kinetics/"
 EXPECTED_CMA_LOOP_LAUNCHES = {"spectrogram": 4 * LOOP_STEPS, "stem_pool_fwd": 4 * LOOP_STEPS,
                               "stem_pool_bwd": 2 * LOOP_STEPS, "nce_gather": 32 * LOOP_STEPS,
                               "r2p1d_pair": 26 * LOOP_STEPS}
+# the action-recognition evals from their YAMLs: the UCF-101 full finetune
+# at 8 and 32 frames (batch 64) and the Kinetics-400 linear probe (batch
+# 128), raw frames at the configs' decode_size
+UCF_8AT16 = os.path.join(REPO, "configs/benchmark/ucf/8at16-fold1.yaml")
+UCF_32AT16 = os.path.join(REPO, "configs/benchmark/ucf/32at16-fold1.yaml")
+KINETICS_LINEAR = os.path.join(REPO, "configs/benchmark/kinetics/8x224x224-linear.yaml")
+STEPS_32AT16 = 2  # timed 32at16 finetune steps, after one untimed
+BATCH_32AT16 = 64  # the recipe's batch
+# launches a step of (K2, K3, K5): a warmup step builds no backward through
+# the frozen backbone; a finetune step runs the stem's forward and backward
+# in training mode (no K5); an eval-mode forward (the clip and dense tests,
+# and every probe step's frozen extractor) runs K5 on its 13 stride-1 pairs
+PER_STEP = {"warmup": (1, 0, 0), "finetune": (1, 1, 0), "test": (1, 0, 13),
+            "probe": (1, 0, 13)}
+# the eval loops, chained from the loop phase's AVID run: a small synthetic
+# corpus, one warmup and one finetune epoch; the probe for one epoch
+FT_VIDEOS, FT_BATCH, FT_TRAIN_CLIPS = 8, 16, 2
+PROBE_VIDEOS, PROBE_BATCH = 8, 8
+FT_LOOP_OVERRIDES = ["dataset.backend=synthetic", f"dataset.synthetic_size={FT_VIDEOS}",
+                     f"dataset.batch_size={FT_BATCH}",
+                     f"dataset.train.clips_per_video={FT_TRAIN_CLIPS}",
+                     "optimizer.num_epochs=1", "optimizer.warmup_epochs=1", "num_workers=4"]
+PROBE_LOOP_OVERRIDES = ["dataset.backend=synthetic", f"dataset.synthetic_size={PROBE_VIDEOS}",
+                        f"dataset.batch_size={PROBE_BATCH}", "optimizer.num_epochs=1",
+                        "num_workers=4"]
 # mining, card against CPU: a row may differ only where its k-th and
 # (k+1)-th agreement, recomputed in f64, lie closer than this (the two sum
 # the f32 products in other orders)
@@ -220,6 +299,12 @@ MINING_SAMPLE_ROWS = 256
 # 0.11, or 0.49 after the ImageNet std (0.225), plus the resize's and the
 # other ops' roundings (about 0.002 each in [0, 1]): 0.6. The mean stays
 # near the resize's one-level rounding, 1/255/0.225 = 0.017.
+# the small finetune step's backbone gradient, card (bf16) against CPU
+# (f32): bf16 rounding flips the max pools' choices on near-ties and
+# reroutes the gradient, so the CPU's own bf16 backbone reaches a cosine
+# of only 0.82-0.96 (by layer) with its f32 one at this size (measured
+# on the card host's CPU); a wrong or missing gradient gives about 0
+GRAD_COS_BF16 = 0.75
 CROP_COLOR_TOL = {"f32_max_abs": 1e-4, "bf16_max_abs": 0.6, "bf16_mean_abs": 0.02}
 
 
@@ -386,6 +471,57 @@ def check_stem_pool(results: dict) -> None:
                n_in * 2 * 2 + n_out * 2 + 4 * c * 4, 0.0, iters=10)
 
 
+def check_stem_pool_32at16(results: dict) -> None:
+    """K2 and K3 at the 32at16 finetune's stem (STEM_SHAPE_32AT16). The
+    first and the last two images against the plain versions (K2 exact,
+    dy within one bf16 ulp, as ``check_stem_pool``); da and db against the
+    plain versions' sums over every chunk of STEM_CHUNK images (2e-3 of
+    the largest). ``plain_ms`` is the chunked sweep over every image."""
+    n, h, w, c = STEM_SHAPE_32AT16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    y = torch.randn(STEM_SHAPE_32AT16, generator=gen, device="cuda", dtype=torch.bfloat16)
+    g = torch.randn((n, h // 2, w // 2, c), generator=gen, device="cuda", dtype=torch.bfloat16)
+    a = torch.rand(c, generator=gen, device="cuda") + 0.5
+    b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    require(y.numel() * y.element_size() > 2**31, "the 32at16 stem is under 2^31 bytes")
+    chunks = [slice(i, min(i + STEM_CHUNK, n)) for i in range(0, n, STEM_CHUNK)]
+    ends = (slice(0, 2), slice(n - 2, n))
+    case = f"32at16 stem {list(STEM_SHAPE_32AT16)}, first and last 2 images"
+    extra = {"plain_ms_is": f"the plain version over {len(chunks)} chunks of {STEM_CHUNK} images"}
+    n_in, n_out = n * h * w * c, n * (h // 2) * (w // 2) * c
+
+    out = stem_pool.stem_pool_fwd(y, a, b)
+    err = max(float((out[r].float() - stem_pool.plain_fwd(y[r], a, b).float()).abs().max())
+              for r in ends)
+    del out
+    report(results, "stem_pool_fwd", case, err, err, 0.0,
+           lambda: stem_pool.stem_pool_fwd(y, a, b),
+           lambda: [stem_pool.plain_fwd(y[r], a, b) for r in chunks],
+           n_in * 2 + n_out * 2 + 2 * c * 4, 0.0, iters=5, extra=extra)
+
+    def plain_sums():
+        parts = [stem_pool.plain_bwd(y[r], a, b, g[r])[1:] for r in chunks]
+        return sum(p[0] for p in parts), sum(p[1] for p in parts)
+
+    dy, da, db = stem_pool.stem_pool_bwd(y, a, b, g)
+    err = ulps = 0.0
+    for r in ends:
+        rdy = stem_pool.plain_bwd(y[r], a, b, g[r])[0]
+        diff = (dy[r].float() - rdy.float()).abs()
+        err, ulps = max(err, float(diff.max())), max(ulps, float((diff / _bf16_ulp(rdy)).max()))
+    del dy
+    rda, rdb = plain_sums()
+    rel_a = float((da - rda).abs().max() / rda.abs().max())
+    rel_b = float((db - rdb).abs().max() / rdb.abs().max())
+    print(json.dumps({"name": "K3 stem_pool_bwd", "case": case, "da_rel": rel_a,
+                      "db_rel": rel_b, "tol": 2e-3}), flush=True)
+    require(max(rel_a, rel_b) <= 2e-3, f"K3 ({case}): da/db off by {rel_a}, {rel_b}")
+    # max_err: dy in bf16 ulps of the plain value
+    report(results, "stem_pool_bwd", case, err, ulps, 1.0,
+           lambda: stem_pool.stem_pool_bwd(y, a, b, g), plain_sums,
+           n_in * 2 * 2 + n_out * 2 + 4 * c * 4, 0.0, iters=3, extra=extra)
+
+
 def check_nce_gather(results: dict) -> None:
     """K4 at K = 1024 (negatives) and K = 1 (the positive), and at the
     AVID-CMA shapes K = 32 (the positives) and K = 64 (the within-modal
@@ -455,7 +591,8 @@ def _taps(n: int) -> int:
 
 
 def check_r2p1d_pair(results: dict) -> None:
-    """K5 at the four stage shapes in bf16 and at conv2x's in f32.
+    """K5 at the four stage shapes in bf16, at conv2x's in f32, and in bf16
+    at the eval paths' batches (EVAL_PAIR_SHAPES).
     Tolerance, max |kernel - plain| / max |plain|: 8e-3 in bf16, two ulps
     at the output's scale (the kernel and cuDNN sum in other orders, and
     the rounding of the bf16 intermediate can flip); 1e-5 in f32."""
@@ -466,6 +603,7 @@ def check_r2p1d_pair(results: dict) -> None:
 
     cases = [(name, shape, torch.bfloat16) for name, shape in PAIR_SHAPES.items()]
     cases.append(("conv2x f32", PAIR_SHAPES["conv2x"], torch.float32))
+    cases += [(name, shape, torch.bfloat16) for name, shape in EVAL_PAIR_SHAPES.items()]
     for case, shape, dtype in cases:
         b, t, h, w, c = shape
         x = randn(*shape).to(dtype)
@@ -903,6 +1041,387 @@ def run_cma_slice() -> dict:
     }
 
 
+def eval_launches(k2: int, k3: int, k5: int) -> dict:
+    """Launch counts of the eval paths' kernels (K2, K3, K5; no K1, K4)."""
+    return {"spectrogram": 0, "stem_pool_fwd": k2, "stem_pool_bwd": k3, "nce_gather": 0,
+            "r2p1d_pair": k5}
+
+
+def per_step(kind: str, steps: int) -> dict:
+    return eval_launches(*(steps * v for v in PER_STEP[kind]))
+
+
+def _eval_model_cfg(model_dir: str) -> config_lib.Config:
+    """The model section of the Cross-N1024 YAML, its run under
+    ``model_dir`` (a directory without a run gives random weights)."""
+    cfg = config_lib.load(LOOP_CONFIG).model
+    cfg["model_dir"] = model_dir
+    return cfg
+
+
+def _eval_inputs(cfg: config_lib.Config, batch: int, seed: int):
+    """``batch`` raw uint8 clips on the card at the config's decode_size,
+    their labels, and the clip shape (T, crop, crop) the model takes."""
+    db = cfg.dataset
+    t = int(round(float(db["clip_duration"]) * float(db["video_fps"])))
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 255, (batch, t, *db["decode_size"], 3),
+                                           dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, int(cfg.model["args"]["n_classes"]),
+                                           batch)).cuda()
+    crop = int(db["crop_size"])
+    return frames, labels, (t, crop, crop)
+
+
+def _finetune_model(cfg: config_lib.Config, clip_shape, model_dir: str):
+    """The YAML's ClassificationWrapper over a random R2Plus1D-18 (the
+    entry point's backbone loader, pointed at no run) on the card."""
+    backbone, source = eval_loop.load_backbone(_eval_model_cfg(model_dir), torch.device("cuda"))
+    require(source is None, f"a backbone was found at {source}")
+    margs = cfg.model["args"]
+    return ClassificationWrapper(
+        backbone, int(margs["n_classes"]), clip_shape, feat_name=margs["feat_name"],
+        pooling_op=margs["pooling_op"], use_dropout=bool(margs["use_dropout"]),
+        dropout=float(margs["dropout"])).cuda()
+
+
+def timed_eval_steps(state: TrainState, fused, frames, labels, kind: str,
+                     steps: int = TIMED_STEPS, busy: bool = True) -> dict:
+    """One untimed fused step, then ``steps`` timed ones with the launch
+    counters reset just before them: finite losses, PER_STEP[kind]
+    launches a step; clips/s on the host clock (the card synchronized),
+    the peak memory, and the device-busy ms a step (torch.profiler, 3
+    more steps)."""
+    t0 = time.perf_counter()
+    fused(state, frames, labels)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    _lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [fused(state, frames, labels)[0]["loss"] for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).cpu()
+    require(bool(torch.isfinite(losses).all()), f"{kind}: non-finite loss {losses.tolist()}")
+    want = per_step(kind, steps)
+    require(launches == want, f"{kind} steps launched {launches}, expected {want}")
+    out = {"losses": losses.tolist(), "warmup_s": warmup_s, "step_ms": dt / steps * 1e3,
+           "clips_per_sec": frames.shape[0] * steps / dt, "peak_mem_gib": peak,
+           "launches": launches,
+           "launches_per_step": dict(zip(("K2", "K3", "K5"), PER_STEP[kind]))}
+    if busy:
+        out["device_busy_ms_per_step"] = launch_split_ms(
+            lambda: fused(state, frames, labels), ("",), iters=3)[""]
+    return out
+
+
+@contextlib.contextmanager
+def plain_stem_backward():
+    """K3's wrapper replaced by its plain version inside the block: the
+    stem's backward on the same card tensors, with no launch."""
+    kernel = stem_pool.stem_pool_bwd
+    stem_pool.stem_pool_bwd = stem_pool.plain_bwd
+    try:
+        yield
+    finally:
+        stem_pool.stem_pool_bwd = kernel
+
+
+def check_small_evals() -> dict:
+    """A warmup step, a finetune step and a probe step at a small size
+    (R2Plus1D-10, 8 clips of 8 x 64^2, 5 classes) on the card and on the
+    CPU from the same weights and BN running stats (drawn from a seed) and
+    the same frames: each loss within 2% of the CPU's (each tap's for the
+    probe). The first finetune step's backbone gradient, and the update:
+    - on each device, every backbone parameter takes Adam's first step
+      from its own gradient (the finetune optimizer holds the whole
+      backbone, and the warmup's freeze is undone);
+    - on the card, the stem's gradients (what K3's dy, da and db feed)
+      equal, within 1e-3 in relative L2 norm, those of the same forward
+      backpropagated through K3's plain version on the same tensors;
+    - the card's backbone gradient points the CPU's f32 way, within what
+      bf16 arithmetic allows (GRAD_COS_BF16) and 5% of its norm.
+    On the card the warmup leaves the backbone's parameters the same bits
+    and moves its BN running stats, the probe leaves the extractor
+    (parameters and stats) the same bits, and each step launches what
+    PER_STEP says (K5 on R2Plus1D-10's five pairs)."""
+    rng = np.random.default_rng(8)
+    clip, ncls, b = (8, 64, 64), 5, 8
+    frames = rng.standard_normal((b, *clip, 3), dtype=np.float32)
+    labels = rng.integers(0, ncls, b)
+    weights = R2Plus1D(10)
+    init_params(weights, torch.Generator().manual_seed(0))
+    stats = np.random.default_rng(9)
+    for m in weights.modules():
+        if isinstance(m, BatchNorm):
+            c = m.running_mean.numel()
+            m.running_mean.copy_(torch.from_numpy(stats.normal(0, 0.1, c).astype(np.float32)))
+            m.running_var.copy_(torch.from_numpy(stats.uniform(0.5, 1.5, c).astype(np.float32)))
+    taps = ["conv2x", "conv3x", "conv4x", "conv5x"]
+    pools = ["AdaptiveMaxPool3d((1, 6, 6))", "AdaptiveMaxPool3d((1, 4, 4))",
+             "AdaptiveMaxPool3d((1, 3, 3))", "AdaptiveMaxPool3d((1, 2, 2))"]
+
+    def backbone(dev):
+        net = R2Plus1D(10, dtype=torch.bfloat16 if dev == "cuda" else torch.float32)
+        net.load_state_dict(weights.state_dict())
+        return net
+
+    lr = 1e-3
+
+    def state(model, params, dev):
+        opt = build_optimizer(params, "adam", lr)
+        return TrainState(model, opt, multistep_scheduler(opt, [], 1.0), None,
+                          torch.Generator(device=dev))
+
+    def counted(dev, per, fn):
+        """fn() launching the (K2, K3, K5) counts ``per`` on the card, none
+        on the CPU."""
+        _lib.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        want = eval_launches(*(v if dev == "cuda" else 0 for v in per))
+        require(dict(_lib.LAUNCHES) == want,
+                f"small step on {dev} launched {dict(_lib.LAUNCHES)}, expected {want}")
+        return out
+
+    out, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        x = torch.from_numpy(frames).to(dev)
+        y = torch.from_numpy(labels).to(dev)
+        step = eval_loop.make_supervised_train_step()
+        model = ClassificationWrapper(backbone(dev), ncls, clip).to(dev)
+        params0 = [p.detach().clone() for p in model.feature_extractor.parameters()]
+        stats0 = [t.clone() for t in model.feature_extractor.buffers()]
+        st = state(model, classifier_parameters(model), dev)
+        with eval_loop.frozen(model.feature_extractor):
+            warm = counted(dev, PER_STEP["warmup"], lambda: step(st, x, y))[0]["loss"]
+        require(all(torch.equal(p, q) for p, q in
+                    zip(model.feature_extractor.parameters(), params0)),
+                f"the warmup step on {dev} changed the backbone's parameters")
+        require(not all(torch.equal(p, q) for p, q in
+                        zip(model.feature_extractor.buffers(), stats0)),
+                f"the warmup step on {dev} left every BN running stat as it was")
+        st = state(model, model.parameters(), dev)
+        twin = copy.deepcopy(model)  # for the card's plain-K3 gradient
+        before = [p.detach().clone() for p in model.feature_extractor.parameters()]
+        fine = counted(dev, PER_STEP["finetune"], lambda: step(st, x, y))[0]["loss"]
+        trained = list(model.feature_extractor.parameters())
+        grads[dev] = torch.cat([p.grad.detach().flatten() for p in trained]).cpu().double()
+        update_err = max(float((p.detach() - p0 + lr * p.grad / (p.grad.abs() + 1e-8)
+                                ).abs().max()) for p, p0 in zip(trained, before))
+        require(update_err <= 1e-3 * lr,
+                f"the finetune step on {dev} did not take Adam's step on every backbone "
+                f"parameter (off by {update_err})")
+        if dev == "cuda":
+            with plain_stem_backward():
+                twin.train()
+                F.cross_entropy(twin(x), y.long()).backward()
+            k3_rel = {name: float((p.grad - q.grad).norm() / q.grad.norm()) for (name, p), q in
+                      zip(model.feature_extractor.conv1.named_parameters(),
+                          twin.feature_extractor.conv1.parameters())}
+            require(max(k3_rel.values()) <= 1e-3,
+                    f"the stem's gradients through K3 and through its plain version differ "
+                    f"({k3_rel})")
+        del twin, before
+
+        probe = MOSTModel(backbone(dev), ncls, taps, pools, clip, use_bn=True).to(dev)
+        extractor = [t.clone() for t in probe.feature_extractor.state_dict().values()]
+        pst = state(probe, classifier_parameters(probe), dev)
+        # R2Plus1D-10 has five stride-1 pairs (R2Plus1D-18: 13)
+        pm = counted(dev, (1, 0, 5), lambda: eval_loop.make_supervised_train_step(True)(
+            pst, x, y))[0]
+        require(all(torch.equal(p, q) for p, q in
+                    zip(probe.feature_extractor.state_dict().values(), extractor)),
+                f"the probe step on {dev} changed the extractor")
+        out[dev] = {"warmup": float(warm), "finetune": float(fine),
+                    **{ft: float(pm[ft]) for ft in taps}}
+    rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in out["cpu"]}
+    got, ref = grads["cuda"], grads["cpu"]
+    cos = float(got @ ref / (got.norm() * ref.norm()))
+    norm_rel = abs(float(got.norm() / ref.norm()) - 1.0)
+    line = {"name": "small eval steps, card vs CPU", "loss_cuda": out["cuda"],
+            "loss_cpu": out["cpu"], "loss_rel": rel, "backbone_grad_cos": cos,
+            "backbone_grad_norm_rel": norm_rel, "stem_grad_k3_vs_plain_rel": k3_rel,
+            "adam_update_err": update_err,
+            "tol": {"loss_rel": 2e-2, "backbone_grad_cos": GRAD_COS_BF16,
+                    "backbone_grad_norm_rel": 5e-2, "stem_grad_k3_vs_plain_rel": 1e-3,
+                    "adam_update_err": 1e-3 * lr},
+            "warmup_backbone_params_unchanged": True, "probe_extractor_unchanged": True}
+    print(json.dumps(line), flush=True)
+    require(max(rel.values()) <= 2e-2, f"small eval steps: card and CPU disagree ({rel})")
+    require(cos >= GRAD_COS_BF16 and norm_rel <= 5e-2,
+            f"small finetune step: the backbone's gradients disagree (cos {cos}, norm {norm_rel})")
+    return line
+
+
+def run_finetune_slice(model_dir: str) -> dict:
+    """configs/benchmark/ucf/8at16-fold1.yaml at its batch (64): R2Plus1D-18
+    with a 101-class head, dropout 0.5, raw 8 x 256 x 342 frames through
+    msc+color on the card; 1 + 5 classifier-only warmup steps (the
+    backbone frozen: its parameters the same bits after them), 1 + 5
+    finetune steps with a fresh optimizer, then a clip-test forward."""
+    cfg = config_lib.load(UCF_8AT16)
+    frames, labels, clip = _eval_inputs(cfg, int(cfg.dataset["batch_size"]), 20)
+    pp = builders.build_preprocess_config(cfg.dataset)
+    model = _finetune_model(cfg, clip, model_dir)
+    backbone = model.feature_extractor
+    state = TrainState(model, *build_from_config(cfg.optimizer, classifier_parameters(model)),
+                       None, torch.Generator(device="cuda"))
+    fused = eval_loop.make_fused_supervised_step(pp, eval_loop.FINETUNE_SEED)
+    params0 = [p.detach().clone() for p in backbone.parameters()]
+    with eval_loop.frozen(backbone):
+        warm = timed_eval_steps(state, fused, frames, labels, "warmup")
+    require(all(torch.equal(p, q) for p, q in zip(backbone.parameters(), params0)),
+            "the warmup steps changed the backbone's parameters")
+    del params0
+    state.optimizer, state.scheduler = build_from_config(cfg.optimizer, model.parameters())
+    fine = timed_eval_steps(state, fused, frames, labels, "finetune")
+
+    logits_fn = eval_loop.make_logits_fn(model)
+    with torch.inference_mode():
+        x = preprocess_batch({"frames": frames}, pp, train=False)["frames"]
+    logits_fn(x)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    logits = logits_fn(x)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    require(launches == per_step("test", 1), f"clip-test forward launched {launches}")
+    require(logits.shape == (frames.shape[0], 101) and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()), f"test logits {logits.shape} {logits.dtype}")
+    ms = time_ms(lambda: logits_fn(x), 5)
+    split = launch_split_ms(lambda: logits_fn(x), ("r2p1d_pair", ""), iters=3)
+    return {"warmup": warm, "finetune": fine, "test_forward": {
+        "ms": ms, "clips_per_sec": frames.shape[0] / ms * 1e3, "launches": launches,
+        "k5_device_ms": split["r2p1d_pair"], "device_busy_ms": split[""]},
+        "warmup_backbone_params_unchanged": True}
+
+
+def run_32at16_slice(model_dir: str) -> dict:
+    """configs/benchmark/ucf/32at16-fold1.yaml: 1 + STEPS_32AT16 finetune
+    steps at BATCH_32AT16 clips of 32 frames (the stem's K2/K3 tensors are
+    64 x 32 x 112^2 x 64)."""
+    cfg = config_lib.load(UCF_32AT16)
+    frames, labels, clip = _eval_inputs(cfg, BATCH_32AT16, 22)
+    pp = builders.build_preprocess_config(cfg.dataset)
+    model = _finetune_model(cfg, clip, model_dir)
+    state = TrainState(model, *build_from_config(cfg.optimizer, model.parameters()), None,
+                       torch.Generator(device="cuda"))
+    fused = eval_loop.make_fused_supervised_step(pp, eval_loop.FINETUNE_SEED)
+    return {"batch": BATCH_32AT16, "frames": clip[0],
+            **timed_eval_steps(state, fused, frames, labels, "finetune", steps=STEPS_32AT16,
+                               busy=False)}
+
+
+def run_probe_slice(model_dir: str) -> dict:
+    """configs/benchmark/kinetics/8x224x224-linear.yaml at its batch (128):
+    raw 8 x 256 x 342 frames through crop+color, the frozen R2Plus1D-18
+    extractor in eval mode (K5), four taps pooled to (1,12,12), (1,8,8),
+    (1,6,6), (1,4,4), BN + Linear to 400 each, the per-tap losses summed:
+    1 + 5 steps; no K3 and 13 K5 launches a step, the extractor
+    (parameters and BN stats) the same bits after them."""
+    cfg = config_lib.load(KINETICS_LINEAR)
+    margs = cfg.model["args"]
+    frames, labels, clip = _eval_inputs(cfg, int(cfg.dataset["batch_size"]), 23)
+    pp = builders.build_preprocess_config(cfg.dataset)
+    backbone, source = eval_loop.load_backbone(_eval_model_cfg(model_dir), torch.device("cuda"))
+    require(source is None, f"a backbone was found at {source}")
+    model = MOSTModel(backbone, int(margs["n_classes"]), list(margs["feat_names"]),
+                      list(margs["pooling_ops"]), clip, l2_norm=margs.get("l2_norm"),
+                      use_bn=bool(margs["use_bn"])).cuda()
+    state = TrainState(model, *build_from_config(cfg.optimizer, classifier_parameters(model)),
+                       None, torch.Generator(device="cuda"))
+    fused = eval_loop.make_fused_supervised_step(pp, eval_loop.PROBE_SEED, multi_output=True)
+    extractor = [t.clone() for t in model.feature_extractor.state_dict().values()]
+    out = timed_eval_steps(state, fused, frames, labels, "probe")
+    require(all(torch.equal(p, q) for p, q in
+                zip(model.feature_extractor.state_dict().values(), extractor)),
+            "the probe steps changed the extractor's parameters or BN stats")
+    metrics, _ = fused(state, frames, labels)
+    taps = {ft: float(metrics[ft]) for ft in margs["feat_names"]}
+    require(all(np.isfinite(v) for v in taps.values()), f"probe tap losses {taps}")
+    return {**out, "tap_losses": taps, "features": [
+        getattr(model, f"classifier_{ft}").classifier.in_features for ft in margs["feat_names"]],
+        "extractor_unchanged": True}
+
+
+def _eval_loop_launches() -> dict:
+    """The eval loops' launches: the finetune run and its test_only rerun,
+    the probe run and its test_only rerun (PER_STEP a step or forward)."""
+    def batches(clips, batch):
+        return -(-clips // batch)
+    ft_train = FT_VIDEOS * FT_TRAIN_CLIPS // FT_BATCH  # steps an epoch (drop_last)
+    ft_test = batches(FT_VIDEOS * 5, FT_BATCH)  # the YAML's 5 clips a test video
+    ft_final = batches(FT_VIDEOS * 25, FT_BATCH) + batches(FT_VIDEOS * 10, FT_BATCH)  # + dense
+    pr_train = PROBE_VIDEOS // PROBE_BATCH
+    pr_final = batches(PROBE_VIDEOS, PROBE_BATCH) + batches(PROBE_VIDEOS * 10, PROBE_BATCH)
+    # + each run's one-clip forward that sizes its heads (tap_shapes)
+    counts = {"warmup": ft_train, "finetune": ft_train, "probe": pr_train,
+              "test": 2 * ft_test + 2 * ft_final + 2 * pr_final + 4}
+    total = [sum(n * PER_STEP[k][i] for k, n in counts.items()) for i in range(3)]
+    return eval_launches(*total)
+
+
+def run_eval_loops(model_dir: str) -> dict:
+    """The eval entry points, chained from the loop phase's AVID run in
+    ``model_dir``: ``run_action_recognition`` on the 8at16 YAML (synthetic
+    corpus, one warmup and one finetune epoch, the 25-clip final test, the
+    dense eval), then again with ``test_only=true`` (the same results);
+    ``run_linear_probe`` on the Kinetics linear YAML likewise. Both load
+    the AVID run's video model: the warmup's checkpoint holds its
+    parameters, and the probe's its parameters and BN stats, bit for bit.
+    The launches of each kernel over the four runs."""
+    mcfg = _eval_model_cfg(model_dir)
+    run_dir = os.path.join(model_dir, mcfg["name"])
+    pretrained = {k.split(".", 1)[1]: v for k, v in import_model_run(run_dir).items()
+                  if k.startswith("video_model.")}
+    runs = (("finetune", eval_loop.run_action_recognition, UCF_8AT16, FT_LOOP_OVERRIDES),
+            ("probe", eval_loop.run_linear_probe, KINETICS_LINEAR, PROBE_LOOP_OVERRIDES))
+    out = {}
+    with loop_log(os.path.join(model_dir, "eval_stdout.log"), "eval loops"):
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        for name, run, path, overrides in runs:
+            for extra in ([], ["test_only=true"]):
+                t0 = time.perf_counter()
+                res = run(config_lib.load(path, overrides + extra), mcfg, fold=1, device="cuda")
+                torch.cuda.synchronize()
+                out[name + ("_test_only" if extra else "")] = {
+                    "results": res, "s": time.perf_counter() - t0}
+        launches = dict(_lib.LAUNCHES)
+    for name in ("finetune", "probe"):
+        require(out[name + "_test_only"]["results"] == out[name]["results"],
+                f"{name}: test_only gave {out[name + '_test_only']['results']}, "
+                f"the run {out[name]['results']}")
+    flat = [v for k in ("finetune", "probe") for v in (
+        out[k]["results"].values() if k == "finetune"
+        else [x for tap in out[k]["results"].values() for x in tap.values()])]
+    require(all(0.0 <= v <= 100.0 for v in flat), f"accuracies {flat}")
+    want = _eval_loop_launches()
+    require(launches == want, f"kernel launches of the eval loops {launches}, expected {want}")
+
+    def eval_dir(path):
+        return os.path.join(run_dir, f"eval-{config_lib.load(path).benchmark['name']}", "fold-01")
+
+    def latest(directory):
+        mgr = CheckpointManager(directory)
+        return torch.load(mgr.path(mgr.latest_step()), map_location="cpu",
+                          weights_only=False)["model"]
+
+    warm = latest(os.path.join(eval_dir(UCF_8AT16), "checkpoints_warmup"))
+    probe = latest(os.path.join(eval_dir(KINETICS_LINEAR), "checkpoints"))
+    require(all(torch.equal(warm["feature_extractor." + k], v) for k, v in pretrained.items()
+                if "running_" not in k),
+            "the finetune's backbone after the warmup is not the AVID run's video model")
+    require(all(torch.equal(probe["feature_extractor." + k], v) for k, v in pretrained.items()),
+            "the probe's extractor is not the AVID run's video model")
+    return {**out, "launches": launches, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "backbone_from_avid_run": "bit-exact"}
+
+
 def trace_device_share(path: str) -> dict:
     """Device busy time and the device's idle share over a
     ``torch.profiler`` chrome trace: the union of the kernel, memcpy and
@@ -1098,7 +1617,11 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    set_full_f32_precision()
+    # the entry points' backend state (TF32 off, cuDNN autotuning on) from
+    # the first phase on: PyTorch caches a convolution's plan under a key
+    # without the autotuning flag, so a shape first run untuned (the K5
+    # yardstick at the eval batch) would stay untuned in every later phase
+    prepare_device("cuda")
 
     t0 = time.perf_counter()
     _lib.lib()
@@ -1109,6 +1632,8 @@ def main() -> None:
     results: dict = {}
     check_spectrogram(results)
     check_stem_pool(results)
+    check_stem_pool_32at16(results)
+    torch.cuda.empty_cache()
     check_nce_gather(results)
     check_r2p1d_pair(results)
     check_small_step()
@@ -1133,9 +1658,28 @@ def main() -> None:
                       "R2Plus1D-18+Conv2D-10 b32 8x224^2, N=232067, 1024 negatives (64 "
                       "within), top-32 consensus positives", **cma}), flush=True)
     torch.cuda.empty_cache()
-    # the AVID loop phase's run directory is the AVID-CMA loop phase's warm start
+    # the AVID loop phase's run directory is the AVID-CMA loop phase's and
+    # the eval loops' warm start; the eval slices point at no run in it
     model_dir = tempfile.mkdtemp(prefix="chip_smoke_loop_")
     try:
+        no_run = os.path.join(model_dir, "no-run")
+        check_small_evals()
+        torch.cuda.empty_cache()
+        ft = run_finetune_slice(no_run)
+        print(json.dumps({"card": smi, "config": "ucf/8at16-fold1.yaml finetune R2Plus1D-18, "
+                          "101 classes, dropout 0.5, b64 8x224^2 msc+color from 256x342",
+                          **ft}), flush=True)
+        torch.cuda.empty_cache()
+        ft32 = run_32at16_slice(no_run)
+        print(json.dumps({"card": smi, "config": f"ucf/32at16-fold1.yaml finetune R2Plus1D-18, "
+                          f"b{BATCH_32AT16} 32x224^2 msc+color from 256x342", **ft32}),
+              flush=True)
+        torch.cuda.empty_cache()
+        pr = run_probe_slice(no_run)
+        print(json.dumps({"card": smi, "config": "kinetics/8x224x224-linear.yaml probe, "
+                          "frozen R2Plus1D-18, 4 taps, 400 classes, b128 8x224^2 crop+color "
+                          "from 256x342", **pr}), flush=True)
+        torch.cuda.empty_cache()
         loop = run_loop(model_dir)
         print(json.dumps({"card": smi, "config": "run_pretraining Cross-N1024.yaml "
                           "R2Plus1D-18+Conv2D-10 b32 8x224^2, synthetic 160 clips from "
@@ -1147,12 +1691,21 @@ def main() -> None:
                           "InstX-N1024-PosW-N64-Top32.yaml (AVID-CMA) from the Cross-N1024 "
                           "run, synthetic 160 clips, re-mined every epoch, 1 epoch + resume "
                           "to 2", **cma_loop}), flush=True)
+        torch.cuda.empty_cache()
+        evl = run_eval_loops(model_dir)
+        print(json.dumps({"card": smi, "config": "run_action_recognition ucf/8at16-fold1.yaml "
+                          f"(synthetic {FT_VIDEOS} videos, b{FT_BATCH}, 1 warmup + 1 finetune "
+                          "epoch, 25-clip final test, dense) and run_linear_probe "
+                          f"kinetics/8x224x224-linear.yaml (synthetic {PROBE_VIDEOS} videos, "
+                          f"b{PROBE_BATCH}, 1 epoch, dense), each again with test_only, from "
+                          "the Cross-N1024 run", **evl}), flush=True)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
     # each kernel's launches on the main path: the pretraining entry point's
     # two runs (train steps run K1-K4, its test phases K1, K2, K4 and K5)
-    launches = loop["launches"]
+    # and the eval entry points' four runs (K2, K3, K5)
+    launches = {k: loop["launches"][k] + evl["launches"][k] for k in KERNELS}
     kernels = []
     for key, meta in KERNELS.items():
         r = results[key]

@@ -3,9 +3,11 @@ card, at small and ragged shapes the chip check does not cover (partial
 tiles, narrow channels, D < 128, out-of-range indices, one or three
 frames, 7^2 and 9^2 planes), plus the wrappers' input checks, launch
 counters, and the channels-last layouts that reach K2 and K5 without a
-copy; and the AVID-CMA path: K4 at its index shapes, the mining sweep on
+copy; the AVID-CMA path: K4 at its index shapes, the mining sweep on
 the card against the CPU, and one CMA train step on the card against the
-CPU.
+CPU; and the eval paths: K5 at T = 32 and at B = 128, K2/K3 at the 32at16
+stem (3.3 GB, its last images), and the launches of the warmup, finetune,
+clip-test and probe steps.
 
 Needs an NVIDIA card; skips without one. Imports no JAX, so it runs on a
 card host without it:
@@ -563,3 +565,114 @@ def test_cma_step_on_the_card_matches_the_cpu(dev):
     assert abs(card[0] - cpu[0]) / abs(cpu[0]) <= 2e-2
     assert abs(card[1] - cpu[1]) / abs(cpu[1]) <= 2e-2
     assert float((card[2] * cpu[2]).sum(1).min()) >= 0.99
+
+
+# the eval paths' K5 shapes: the 32at16 finetune's stride-1 pairs at T = 32
+# (conv2x to conv5x, 2 of its 64 clips) and the linear probe's conv2x at
+# B = 128 (T = 8)
+@pytest.mark.parametrize("shape", [
+    (2, 32, 56, 56, 64), (2, 16, 28, 28, 128), (2, 8, 14, 14, 256), (2, 4, 7, 7, 512),
+    (128, 8, 56, 56, 64),
+], ids=["32at16-conv2x", "32at16-conv3x", "32at16-conv4x", "32at16-conv5x", "probe-b128-conv2x"])
+def test_r2p1d_pair_bf16_at_the_eval_shapes(dev, shape):
+    args = _pair_inputs(dev, shape, torch.bfloat16)
+    before = _lib.LAUNCHES["r2p1d_pair"]
+    got = r2p1d_pair.r2p1d_pair(*args).float()
+    assert _lib.LAUNCHES["r2p1d_pair"] == before + 1
+    ref = r2p1d_pair.plain_pair(*args).float()
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 8e-3
+    # the last clip's last frame, where a wrapped offset would land
+    assert float((got[-1, -1] - ref[-1, -1]).abs().max() / ref.abs().max()) <= 8e-3
+
+
+def test_stem_pool_kernels_at_the_32at16_stem(dev):
+    """K2 and K3 at the 32at16 finetune's stem: 64 clips x 32 frames of
+    112^2 x 64 (3.3 GB of bf16, past 2^31 bytes). The first and the last
+    two images against the plain versions (where a 32-bit offset would
+    wrap); K3's da and db against the plain sums over every image, taken
+    in chunks."""
+    n, h, w, c = 64 * 32, 112, 112, 64
+    gen = torch.Generator(device=dev).manual_seed(7)
+    y = torch.randn((n, h, w, c), generator=gen, device=dev, dtype=torch.bfloat16)
+    g = torch.randn((n, h // 2, w // 2, c), generator=gen, device=dev, dtype=torch.bfloat16)
+    a = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    assert y.numel() * y.element_size() > 2**31
+    out = stem_pool.stem_pool_fwd(y, a, b)
+    dy, da, db = stem_pool.stem_pool_bwd(y, a, b, g)
+    for rows in (slice(0, 2), slice(n - 2, n)):
+        assert torch.equal(out[rows], stem_pool.plain_fwd(y[rows], a, b))
+        rdy, _, _ = stem_pool.plain_bwd(y[rows], a, b, g[rows])
+        assert float(((dy[rows].float() - rdy.float()).abs() / _bf16_ulp(rdy)).max()) <= 1.0
+    rda, rdb = torch.zeros_like(da), torch.zeros_like(db)
+    for i in range(0, n, 128):
+        _, pa, pb = stem_pool.plain_bwd(y[i:i + 128], a, b, g[i:i + 128])
+        rda += pa
+        rdb += pb
+    torch.testing.assert_close(da, rda, rtol=2e-3, atol=1e-3)
+    torch.testing.assert_close(db, rdb, rtol=2e-3, atol=1e-3)
+
+
+def test_eval_steps_on_the_card(dev):
+    """The eval paths' launches at a small size: a warmup step (the
+    backbone frozen: K2, no K3, its parameters the same bits, its BN
+    running stats moved), a finetune step (K2 and K3), a clip-test
+    forward (K2, K5 on the five stride-1 pairs of R2Plus1D-10) and a
+    probe step (K2, K5; the extractor the same bits)."""
+    from avid_cma_tpu_torch.models.av_wrapper import init_params
+    from avid_cma_tpu_torch.models.eval_wrappers import (
+        ClassificationWrapper,
+        MOSTModel,
+        classifier_parameters,
+    )
+    from avid_cma_tpu_torch.train.eval_loop import (
+        frozen,
+        make_logits_fn,
+        make_supervised_train_step,
+    )
+    from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
+    from avid_cma_tpu_torch.train.state import TrainState
+
+    rng = np.random.default_rng(31)
+    frames = torch.from_numpy(rng.standard_normal((8, 8, 64, 64, 3), dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 5, 8)).to(dev)
+    backbone = R2Plus1D(10, dtype=torch.bfloat16)
+    init_params(backbone, torch.Generator().manual_seed(0))
+    model = ClassificationWrapper(backbone, 5, (8, 64, 64)).to(dev)
+
+    def state_for(params):
+        opt = build_optimizer(params, "adam", 1e-3)
+        return TrainState(model, opt, multistep_scheduler(opt, [], 1.0), None,
+                          torch.Generator(device=dev))
+
+    def launches(fn):
+        before = dict(_lib.LAUNCHES)
+        fn()
+        torch.cuda.synchronize()
+        return tuple(_lib.LAUNCHES[k] - before[k]
+                     for k in ("stem_pool_fwd", "stem_pool_bwd", "r2p1d_pair"))
+
+    step = make_supervised_train_step()
+    params0 = [p.detach().clone() for p in model.feature_extractor.parameters()]
+    stats0 = [t.clone() for t in model.feature_extractor.buffers()]
+    state = state_for(classifier_parameters(model))
+    with frozen(model.feature_extractor):
+        assert launches(lambda: step(state, frames, labels)) == (1, 0, 0)
+    assert all(torch.equal(p, q) for p, q in zip(model.feature_extractor.parameters(), params0))
+    assert not all(torch.equal(s, t) for s, t in zip(model.feature_extractor.buffers(), stats0))
+    state = state_for(model.parameters())
+    assert launches(lambda: step(state, frames, labels)) == (1, 1, 0)
+    logits = make_logits_fn(model)
+    assert launches(lambda: logits(frames)) == (1, 0, 5)
+    assert logits(frames).dtype == torch.float32
+
+    probe = MOSTModel(model.feature_extractor, 5, ["conv2x", "conv5x"],
+                      ["AdaptiveMaxPool3d((1, 6, 6))", None], (8, 64, 64), use_bn=True).to(dev)
+    extractor = [t.clone() for t in probe.feature_extractor.state_dict().values()]
+    opt = build_optimizer(classifier_parameters(probe), "adam", 1e-3)
+    pstate = TrainState(probe, opt, multistep_scheduler(opt, [], 1.0), None,
+                        torch.Generator(device=dev))
+    pstep = make_supervised_train_step(multi_output=True)
+    assert launches(lambda: pstep(pstate, frames, labels)) == (1, 0, 5)
+    assert all(torch.equal(s, t) for s, t in
+               zip(probe.feature_extractor.state_dict().values(), extractor))
