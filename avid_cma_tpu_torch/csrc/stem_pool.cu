@@ -698,6 +698,240 @@ int bwd_launch(const void* y, const float* a, const float* b, const void* g, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- f32 forms (model.dtype: float32) ----
+//
+// Plain kernels, one thread per pixel and 4 channels (a float4; C / 4
+// divides F32_THREADS, so a thread of a grid-stride loop keeps its
+// channels). The math is the bf16 kernels' and the plain version's in
+// f32: the affine with __fmul_rn/__fadd_rn, rounded once, padding out of
+// the max, each window's gradient to its first row-major max, masked by
+// relu(...) > 0. Every offset is 64-bit: the 32at16 stem is 6.6 GB in f32.
+// Backward: the first pass writes each window's max position as a byte a
+// channel; the second gathers g at each input element from the at most
+// 2 x 2 windows whose code points at it, in the plain version's order,
+// writes dy and sums d*y and d per channel in f64 registers; each block
+// writes one partial row and a third launch sums the rows in a fixed
+// order (no atomics: the same bits on every run).
+
+constexpr int F32_THREADS = 256;
+constexpr int F32_BLOCKS_PER_SM = 8;
+constexpr unsigned char NO_MAX = 0xff;
+
+__device__ __forceinline__ float relu_affine(float y, float a, float b) {
+  return fmaxf(__fadd_rn(__fmul_rn(y, a), b), 0.f);
+}
+
+__device__ __forceinline__ float4 relu_affine4(const float4& y, const float4& a,
+                                               const float4& b) {
+  return make_float4(relu_affine(y.x, a.x, b.x), relu_affine(y.y, a.y, b.y),
+                     relu_affine(y.z, a.z, b.z), relu_affine(y.w, a.w, b.w));
+}
+
+// grid of a grid-stride pass over `total` items: what the card holds at
+// F32_BLOCKS_PER_SM blocks an SM, at most one block per F32_THREADS items
+int f32_grid(long long total) {
+  int dev = 0;
+  int sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 0;
+  }
+  const long long need = (total + F32_THREADS - 1) / F32_THREADS;
+  const long long most = (long long)sms * F32_BLOCKS_PER_SM;
+  return (int)(need < most ? need : most);
+}
+
+// K2 in f32: out[n, oh, ow, 4v..4v+3] = max over the window's in-bounds
+// elements of relu(y*a + b)
+__global__ void __launch_bounds__(F32_THREADS) stem_pool_fwd_f32_kernel(
+    const float4* __restrict__ y, const float4* __restrict__ a, const float4* __restrict__ b,
+    float4* __restrict__ out, int N, int H, int W, int CV) {
+  const int OH = H / 2;
+  const int OW = W / 2;
+  const long long total = (long long)N * OH * OW * CV;
+  const long long stride = (long long)gridDim.x * F32_THREADS;
+  for (long long e = (long long)blockIdx.x * F32_THREADS + threadIdx.x; e < total;
+       e += stride) {
+    const int v = (int)(e % CV);
+    const long long p = e / CV;
+    const int ow = (int)(p % OW);
+    const int oh = (int)(p / OW % OH);
+    const long long n = p / ((long long)OW * OH);
+    const float4 av = __ldg(a + v);
+    const float4 bv = __ldg(b + v);
+    float4 m = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+#pragma unroll
+    for (int dh = 0; dh < 3; ++dh) {
+      const int h = 2 * oh - 1 + dh;
+      if (h < 0 || h >= H) continue;
+#pragma unroll
+      for (int dw = 0; dw < 3; ++dw) {
+        const int w = 2 * ow - 1 + dw;
+        if (w < 0 || w >= W) continue;
+        const float4 x = relu_affine4(__ldg(y + ((n * H + h) * W + w) * CV + v), av, bv);
+        m = make_float4(fmaxf(m.x, x.x), fmaxf(m.y, x.y), fmaxf(m.z, x.z), fmaxf(m.w, x.w));
+      }
+    }
+    out[e] = m;
+  }
+}
+
+// K3 in f32, pass 1: code[n, oh, ow, c] = 3*dh + dw of the window's first
+// row-major max of relu(y*a + b) (padding excluded), four channels a word
+__global__ void __launch_bounds__(F32_THREADS) stem_pool_argmax_f32_kernel(
+    const float4* __restrict__ y, const float4* __restrict__ a, const float4* __restrict__ b,
+    unsigned* __restrict__ code, int N, int H, int W, int CV) {
+  const int OH = H / 2;
+  const int OW = W / 2;
+  const long long total = (long long)N * OH * OW * CV;
+  const long long stride = (long long)gridDim.x * F32_THREADS;
+  for (long long e = (long long)blockIdx.x * F32_THREADS + threadIdx.x; e < total;
+       e += stride) {
+    const int v = (int)(e % CV);
+    const long long p = e / CV;
+    const int ow = (int)(p % OW);
+    const int oh = (int)(p / OW % OH);
+    const long long n = p / ((long long)OW * OH);
+    const float4 av = __ldg(a + v);
+    const float4 bv = __ldg(b + v);
+    float best[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+    unsigned k[4] = {NO_MAX, NO_MAX, NO_MAX, NO_MAX};
+#pragma unroll
+    for (int dh = 0; dh < 3; ++dh) {
+      const int h = 2 * oh - 1 + dh;
+      if (h < 0 || h >= H) continue;
+#pragma unroll
+      for (int dw = 0; dw < 3; ++dw) {
+        const int w = 2 * ow - 1 + dw;
+        if (w < 0 || w >= W) continue;
+        const float4 x = relu_affine4(__ldg(y + ((n * H + h) * W + w) * CV + v), av, bv);
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (xs[j] > best[j]) {
+            best[j] = xs[j];
+            k[j] = 3 * dh + dw;
+          }
+        }
+      }
+    }
+    code[e] = k[0] | (k[1] << 8) | (k[2] << 16) | (k[3] << 24);
+  }
+}
+
+// K3 in f32, pass 2: for each input element, d = the sum of g over the
+// windows whose code points at it, window (dh, dw) row-major as the plain
+// version adds them, masked by relu(y*a + b) > 0; dy = d*a; per channel
+// sums of d*y and d into one f64 partial row a block
+__global__ void __launch_bounds__(F32_THREADS) stem_pool_bwd_f32_kernel(
+    const float4* __restrict__ y, const float4* __restrict__ a, const float4* __restrict__ b,
+    const float4* __restrict__ g, const unsigned* __restrict__ code, float4* __restrict__ dy,
+    double* __restrict__ da_part, double* __restrict__ db_part, int N, int H, int W, int CV) {
+  const int OH = H / 2;
+  const int OW = W / 2;
+  const long long total = (long long)N * H * W * CV;
+  const long long stride = (long long)gridDim.x * F32_THREADS;
+  // stride and F32_THREADS are multiples of CV: a thread keeps channels 4v..4v+3
+  const int v = threadIdx.x % CV;
+  const float4 av = __ldg(a + v);
+  const float4 bv = __ldg(b + v);
+  const float as[4] = {av.x, av.y, av.z, av.w};
+  double sa[4] = {0.0, 0.0, 0.0, 0.0};
+  double sb[4] = {0.0, 0.0, 0.0, 0.0};
+  for (long long e = (long long)blockIdx.x * F32_THREADS + threadIdx.x; e < total;
+       e += stride) {
+    const long long p = e / CV;
+    const int w = (int)(p % W);
+    const int h = (int)(p / W % H);
+    const long long n = p / ((long long)W * H);
+    const float4 yv = __ldg(y + e);
+    const float4 yh = relu_affine4(yv, av, bv);
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int dh = 0; dh < 3; ++dh) {
+      const int r = h + 1 - dh;  // 2 * oh for the window holding h at row dh
+      if (r < 0 || (r & 1) || r / 2 >= OH) continue;
+#pragma unroll
+      for (int dw = 0; dw < 3; ++dw) {
+        const int q = w + 1 - dw;
+        if (q < 0 || (q & 1) || q / 2 >= OW) continue;
+        const long long wi = ((n * OH + r / 2) * OW + q / 2) * CV + v;
+        const unsigned c4 = __ldg(code + wi);
+        const float4 gv = __ldg(g + wi);
+        const float gs[4] = {gv.x, gv.y, gv.z, gv.w};
+        const unsigned k = 3 * dh + dw;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (((c4 >> (8 * j)) & 0xffu) == k) d[j] += gs[j];
+        }
+      }
+    }
+    const float ys[4] = {yv.x, yv.y, yv.z, yv.w};
+    const float hs[4] = {yh.x, yh.y, yh.z, yh.w};
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!(hs[j] > 0.f)) d[j] = 0.f;
+      o[j] = __fmul_rn(d[j], as[j]);
+      sa[j] += (double)__fmul_rn(d[j], ys[j]);
+      sb[j] += (double)d[j];
+    }
+    dy[e] = make_float4(o[0], o[1], o[2], o[3]);
+  }
+  __shared__ double red[F32_THREADS][8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    red[threadIdx.x][j] = sa[j];
+    red[threadIdx.x][4 + j] = sb[j];
+  }
+  __syncthreads();
+  const int C = 4 * CV;
+  for (int c = threadIdx.x; c < C; c += F32_THREADS) {
+    const int j = c % 4;
+    double ta = 0.0;
+    double tb = 0.0;
+    for (int t = c / 4; t < F32_THREADS; t += CV) {
+      ta += red[t][j];
+      tb += red[t][4 + j];
+    }
+    da_part[(size_t)blockIdx.x * C + c] = ta;
+    db_part[(size_t)blockIdx.x * C + c] = tb;
+  }
+}
+
+// da[c], db[c]: block c sums column c of the f64 partial rows in a fixed
+// order, then rounds once to f32
+__global__ void __launch_bounds__(SUM_THREADS) stem_pool_bwd_f32_sum_kernel(
+    const double* __restrict__ da_part, const double* __restrict__ db_part,
+    float* __restrict__ da, float* __restrict__ db, int parts, int C) {
+  __shared__ double sa[SUM_THREADS];
+  __shared__ double sb[SUM_THREADS];
+  const int c = blockIdx.x;
+  double ta = 0.0;
+  double tb = 0.0;
+  for (int p = threadIdx.x; p < parts; p += SUM_THREADS) {
+    ta += da_part[(size_t)p * C + c];
+    tb += db_part[(size_t)p * C + c];
+  }
+  sa[threadIdx.x] = ta;
+  sb[threadIdx.x] = tb;
+  __syncthreads();
+  for (int half = SUM_THREADS / 2; half > 0; half /= 2) {
+    if (threadIdx.x < half) {
+      sa[threadIdx.x] += sa[threadIdx.x + half];
+      sb[threadIdx.x] += sb[threadIdx.x + half];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    da[c] = (float)sa[0];
+    db[c] = (float)sb[0];
+  }
+}
+
+bool f32_channels_ok(int C) { return C >= 4 && C % 4 == 0 && F32_THREADS % (C / 4) == 0; }
+
 }  // namespace
 
 // y (N, H, W, C) bf16, N, H, W > 0, H and W even, C one of 8, 16, 32,
@@ -746,4 +980,57 @@ extern "C" int avid_stem_pool_bwd(const void* y, const float* a, const float* b,
     case 128: return bwd_launch<16>(y, a, b, g, dy, da_part, db_part, da, db, N, H, W, parts, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// f32 forms. y (N, H, W, C) f32, N, H, W > 0, H and W even, C a multiple
+// of 4 with C / 4 dividing 256; a, b (C,) f32; out (N, H/2, W/2, C) f32.
+// Every pointer 16-byte aligned.
+extern "C" int avid_stem_pool_fwd_f32(const void* y, const float* a, const float* b,
+                                      void* out, int N, int H, int W, int C, void* stream) {
+  if (!f32_channels_ok(C)) return static_cast<int>(cudaErrorInvalidValue);
+  const int CV = C / 4;
+  const int grid = f32_grid((long long)N * (H / 2) * (W / 2) * CV);
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  stem_pool_fwd_f32_kernel<<<grid, F32_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(y), reinterpret_cast<const float4*>(a),
+      reinterpret_cast<const float4*>(b), static_cast<float4*>(out), N, H, W, CV);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of the f64 partial sums avid_stem_pool_bwd_f32 needs (the second
+// pass's grid) on the current device; 0 if it cannot run the shape.
+extern "C" int avid_stem_pool_bwd_f32_parts(int N, int H, int W, int C) {
+  if (!f32_channels_ok(C)) return 0;
+  return f32_grid((long long)N * H * W * (C / 4));
+}
+
+// y (N, H, W, C) f32; g (N, H/2, W/2, C) f32; dy like y; code (N, H/2,
+// W/2, C) bytes of scratch; part (2, parts, C) f64 scratch with parts =
+// avid_stem_pool_bwd_f32_parts; da, db (C,) f32. Three launches on
+// `stream`: the window codes, the gather, the sum.
+extern "C" int avid_stem_pool_bwd_f32(const void* y, const float* a, const float* b,
+                                      const void* g, void* dy, void* code, double* part,
+                                      float* da, float* db, int N, int H, int W, int C,
+                                      int parts, void* stream) {
+  if (!f32_channels_ok(C) || parts < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int CV = C / 4;
+  const float4* y4 = static_cast<const float4*>(y);
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  const int grid = f32_grid((long long)N * (H / 2) * (W / 2) * CV);
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  stem_pool_argmax_f32_kernel<<<grid, F32_THREADS, 0, s>>>(y4, a4, b4,
+                                                           static_cast<unsigned*>(code), N, H,
+                                                           W, CV);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stem_pool_bwd_f32_kernel<<<parts, F32_THREADS, 0, s>>>(
+      y4, a4, b4, static_cast<const float4*>(g), static_cast<const unsigned*>(code),
+      static_cast<float4*>(dy), part, part + (size_t)parts * C, N, H, W, CV);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stem_pool_bwd_f32_sum_kernel<<<C, SUM_THREADS, 0, s>>>(part, part + (size_t)parts * C, da,
+                                                         db, parts, C);
+  return static_cast<int>(cudaGetLastError());
 }

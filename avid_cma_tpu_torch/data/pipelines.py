@@ -37,6 +37,8 @@ class PreprocessConfig:
     audio_clip_duration: float = 2.0
     volume_jitter: float = 0.1
     normalize_spectrogram: bool = True
+    # the clips' dtype, the model's (``model.dtype``; ``device.compute_dtype``)
+    model_dtype: str = "auto"
 
     def __post_init__(self):
         if self.transform not in ("msc+color", "crop+color"):
@@ -96,14 +98,16 @@ def preprocess_batch(batch: Dict[str, torch.Tensor], cfg: PreprocessConfig,
                      generator: Optional[torch.Generator] = None,
                      train: bool = True) -> Dict[str, torch.Tensor]:
     """{frames: uint8 (B,T,H,W,3), audio: f32 (B,L), index} ->
-    {frames: (B,T,S,S,3), audio: f32 (B,T',F,1), index}. The train path
+    {frames: (B,T,S,S,3) in the model's dtype, audio: f32 (B,T',F,1),
+    index}. The train path
     draws from ``generator``; the eval path (``train=False``) has no
     randomness and no volume jitter."""
     out = dict(batch)
     if "frames" in batch:
         frames = batch["frames"]
-        # bf16 on the card: its 8-bit mantissa matches the 8-bit source frames
-        dtype = compute_dtype(frames.device)
+        # the model's compute dtype; by default bf16 on the card, whose
+        # 8-bit mantissa matches the 8-bit source frames
+        dtype = compute_dtype(frames.device, cfg.model_dtype)
         if train:
             out["frames"] = _train_clips(frames, cfg, generator, dtype)
         elif cfg.transform == "crop+color":

@@ -1,8 +1,10 @@
 """Device and compute-dtype resolution for the port's entry points.
 
 Counterpart of ``resolve_compute_dtype`` (avid_cma_tpu/train/builders.py:
-20-42): parameters stay float32; convolutions compute in bfloat16 on the
-card and float32 on the CPU, where the parity tests run.
+20-42): parameters stay float32; the convolutions and the video
+preprocessing compute in the dtype ``model.dtype`` names: ``auto`` is
+bfloat16 on the card and float32 on the CPU, where the parity tests run;
+``float32`` is float32 on both; ``bfloat16`` is the card's only.
 """
 
 from __future__ import annotations
@@ -25,10 +27,28 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-def compute_dtype(device: torch.device) -> torch.dtype:
-    """Convolution compute dtype: bfloat16 on CUDA (the stem kernels take
-    bf16 only), float32 on the CPU."""
-    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+_SPECS = {"auto": None, "float32": torch.float32, "f32": torch.float32,
+               "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def compute_dtype(device: str | torch.device, spec=None) -> torch.dtype:
+    """The compute dtype of ``model.dtype`` = ``spec`` on ``device``:
+    ``auto`` (or None) is bfloat16 on CUDA and float32 on the CPU;
+    ``float32`` is float32 everywhere; ``bfloat16`` is bfloat16 on CUDA
+    and raises on the CPU, whose path computes f32 only. Nothing falls
+    back to another dtype."""
+    spec = "auto" if spec is None else str(spec)
+    if spec not in _SPECS:
+        raise ValueError(f"unknown model.dtype {spec!r}: expected auto|float32|bfloat16")
+    cuda = torch.device(device).type == "cuda"
+    want = _SPECS[spec]
+    if want is None:
+        return torch.bfloat16 if cuda else torch.float32
+    if want == torch.bfloat16 and not cuda:
+        raise NotImplementedError(
+            "model.dtype=bfloat16 on the CPU is not ported: the CPU path computes "
+            "f32; use model.dtype=auto or float32")
+    return want
 
 
 def set_full_f32_precision() -> None:

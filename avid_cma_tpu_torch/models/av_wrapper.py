@@ -88,13 +88,15 @@ def av_wrapper(
     proj_dim: Union[int, Sequence[int]] = 128,
     seed: int = 0,
     device: str | torch.device = "cuda",
+    dtype=None,
 ) -> AVWrapper:
     """Build the AV model with weights initialized from ``seed`` (on the
     CPU, then moved), on ``device``; raises when ``device`` is CUDA and no
-    card is present. Convolutions compute in bf16 on CUDA and f32 on the
-    CPU; parameters are always f32."""
+    card is present. Convolutions compute in the dtype of ``model.dtype``
+    = ``dtype`` (``compute_dtype``: by default bf16 on CUDA and f32 on
+    the CPU); parameters are always f32."""
     dev = resolve_device(device)
-    cdt = compute_dtype(dev)
+    cdt = compute_dtype(dev, dtype)
     model = AVWrapper(
         BACKBONES[video_backbone](**dict(video_backbone_args or {}), dtype=cdt),
         BACKBONES[audio_backbone](**dict(audio_backbone_args or {}), dtype=cdt),

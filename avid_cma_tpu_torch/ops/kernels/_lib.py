@@ -39,6 +39,8 @@ LAUNCHES: Dict[str, int] = {
     "spectrogram": 0,
     "stem_pool_fwd": 0,
     "stem_pool_bwd": 0,
+    "stem_pool_fwd_f32": 0,
+    "stem_pool_bwd_f32": 0,
     "nce_gather": 0,
     "r2p1d_pair": 0,
 }
@@ -57,6 +59,12 @@ _SIGNATURES = {
     "avid_stem_pool_bwd_parts": [_I] * 4,
     # y, a, b, g, dy, da_part, db_part, da, db, N, H, W, C, parts, stream
     "avid_stem_pool_bwd": [_VP] * 9 + [_I] * 5 + [_VP],
+    # the f32 forms: y, a, b, out, N, H, W, C, stream
+    "avid_stem_pool_fwd_f32": [_VP] * 4 + [_I] * 4 + [_VP],
+    # N, H, W, C -> rows of the f64 partial sums avid_stem_pool_bwd_f32 needs
+    "avid_stem_pool_bwd_f32_parts": [_I] * 4,
+    # y, a, b, g, dy, code, part, da, db, N, H, W, C, parts, stream
+    "avid_stem_pool_bwd_f32": [_VP] * 9 + [_I] * 5 + [_VP],
     # bank, idx, q, out, B, K, N, D, temperature, stream
     "avid_nce_scores": [_VP] * 4 + [_I] * 4 + [_F, _VP],
     # x, w_spatial, w_temporal, scale, bias, out, B, T, H, W, C, stream (f32)

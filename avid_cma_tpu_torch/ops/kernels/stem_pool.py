@@ -8,6 +8,11 @@ the (B*T, 112, 112, 64) bf16 stem activation once (411 MB at the Kinetics
 shape) and writes the pooled quarter; the backward reads it and the
 pooled gradient and writes dy.
 
+Each direction has two kernels, picked by ``y.dtype``: the staged
+shared-memory kernels for bf16 (the card's default compute dtype), and
+plain one-thread-per-pixel kernels for f32 (``model.dtype: float32``),
+counted apart as ``stem_pool_fwd_f32`` / ``stem_pool_bwd_f32``.
+
 Semantics (identical in kernel and plain version): the affine
 ``relu(y*a + b)`` is computed in f32 with a separate multiply and add and
 rounded once to ``y.dtype``; padding is excluded from the max; the
@@ -29,8 +34,10 @@ import torch.nn.functional as F
 
 from avid_cma_tpu_torch.ops.kernels import _lib
 
-# channel counts both kernels take (C / 8 chunks of 16 bytes per element)
+# channel counts every kernel takes (bf16: C / 8 chunks of 16 bytes per
+# element; f32: C / 4 float4s, dividing the block's 256 threads)
 KERNEL_CHANNELS = (8, 16, 32, 64, 128)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _relu_affine(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -85,9 +92,15 @@ def _check_shapes(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> Tuple[in
     n, h, w, c = y.shape
     if h % 2 or w % 2:
         raise ValueError(f"y: H and W must be even, got {h}x{w}")
-    _lib.require(y, "y", torch.bfloat16)
+    if y.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"y: expected bfloat16 or float32, got {y.dtype}")
+    _lib.require(y, "y", y.dtype)
     _lib.require(a, "a", torch.float32, (c,))
     _lib.require(b, "b", torch.float32, (c,))
+    if y.dtype == torch.float32:  # the f32 forms read a float4 at a time
+        for name, t in (("y", y), ("a", a), ("b", b)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: expected a 16-byte aligned tensor")
     return n, h, w, c
 
 
@@ -99,29 +112,35 @@ def _require_kernel_shape(direction: str, n: int, h: int, w: int, c: int) -> Non
 
 def stem_pool_fwd(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Forward (N, H, W, C) -> (N, H/2, W/2, C): kernel K2 for a CUDA
-    tensor (bf16, contiguous, C in ``KERNEL_CHANNELS``), the plain version
-    for a CPU tensor."""
+    tensor (bf16 or f32, contiguous, C in ``KERNEL_CHANNELS``), the plain
+    version for a CPU tensor."""
     if y.device.type == "cpu":
         return plain_fwd(y, a, b)
     n, h, w, c = _check_shapes(y, a, b)
     _require_kernel_shape("forward", n, h, w, c)
     out = torch.empty((n, h // 2, w // 2, c), dtype=y.dtype, device=y.device)
-    err = _lib.lib().avid_stem_pool_fwd(
+    key = "stem_pool_fwd_f32" if y.dtype == torch.float32 else "stem_pool_fwd"
+    err = getattr(_lib.lib(), f"avid_{key}")(
         y.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c,
         _lib.stream())
-    _lib.check(err, "avid_stem_pool_fwd")
-    _lib.LAUNCHES["stem_pool_fwd"] += 1
+    _lib.check(err, f"avid_{key}")
+    _lib.LAUNCHES[key] += 1
     return out
 
 
 def stem_pool_bwd(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                   g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward: kernel K3 for CUDA tensors, the plain version for CPU."""
+    """Backward: kernel K3 for CUDA tensors (bf16 or f32, g in y's
+    dtype), the plain version for CPU."""
     if y.device.type == "cpu":
         return plain_bwd(y, a, b, g)
     n, h, w, c = _check_shapes(y, a, b)
-    _lib.require(g, "g", torch.bfloat16, (n, h // 2, w // 2, c))
+    _lib.require(g, "g", y.dtype, (n, h // 2, w // 2, c))
     _require_kernel_shape("backward", n, h, w, c)
+    if y.dtype == torch.float32:
+        if g.data_ptr() % 16:
+            raise ValueError("g: expected a 16-byte aligned tensor")
+        return _bwd_f32(y, a, b, g)
     kernels = _lib.lib()
     # the kernel's persistent grid, one partial row of da and db per block
     parts = kernels.avid_stem_pool_bwd_parts(n, h, w, c)
@@ -136,6 +155,28 @@ def stem_pool_bwd(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         sums[1].data_ptr(), n, h, w, c, parts, _lib.stream())
     _lib.check(err, "avid_stem_pool_bwd")
     _lib.LAUNCHES["stem_pool_bwd"] += 1
+    return dy, sums[0], sums[1]
+
+
+def _bwd_f32(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's f32 form on checked CUDA tensors: the window codes, the
+    gather, the sum of the f64 partial rows."""
+    n, h, w, c = y.shape
+    kernels = _lib.lib()
+    parts = kernels.avid_stem_pool_bwd_f32_parts(n, h, w, c)
+    if parts < 1:
+        raise RuntimeError(f"avid_stem_pool_bwd_f32_parts found no launch for {(n, h, w, c)}")
+    dy = torch.empty_like(y)
+    code = torch.empty((n, h // 2, w // 2, c), dtype=torch.uint8, device=y.device)
+    part = torch.empty((2, parts, c), dtype=torch.float64, device=y.device)
+    sums = torch.empty((2, c), dtype=torch.float32, device=y.device)
+    err = kernels.avid_stem_pool_bwd_f32(
+        y.data_ptr(), a.data_ptr(), b.data_ptr(), g.data_ptr(), dy.data_ptr(),
+        code.data_ptr(), part.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
+        n, h, w, c, parts, _lib.stream())
+    _lib.check(err, "avid_stem_pool_bwd_f32")
+    _lib.LAUNCHES["stem_pool_bwd_f32"] += 1
     return dy, sums[0], sums[1]
 
 

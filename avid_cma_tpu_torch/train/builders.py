@@ -27,7 +27,7 @@ from avid_cma_tpu_torch.criterions.avid_cma import AVIDCMAConfig
 from avid_cma_tpu_torch.data.loader import CachedDataLoader, DataLoader, MultiprocessDataLoader
 from avid_cma_tpu_torch.data.pipelines import PreprocessConfig
 from avid_cma_tpu_torch.registry import DATASETS
-from avid_cma_tpu_torch.device import prepare_device
+from avid_cma_tpu_torch.device import compute_dtype, prepare_device
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
@@ -89,6 +89,8 @@ class PretrainConfig:
     color: Tuple[float, float, float, float] = (0.4, 0.4, 0.4, 0.2)
     resize: Tuple[int, int] = (256, 256)
     jitter_order: str = "canonical"
+    # model.dtype: the convolutions' and the clips' compute dtype
+    model_dtype: str = "auto"
 
     @property
     def batch_size(self) -> int:
@@ -106,7 +108,7 @@ class PretrainConfig:
             jitter_order=self.jitter_order,
             audio_fps=self.audio_fps, n_fft=self.n_fft,
             spectrogram_fps=self.spectrogram_fps,
-            audio_clip_duration=self.audio_clip_duration)
+            audio_clip_duration=self.audio_clip_duration, model_dtype=self.model_dtype)
 
     def criterion(self, embedding_dim: int) -> Union[AVIDConfig, AVIDCMAConfig]:
         if self.loss == "AVID_CMA":
@@ -158,30 +160,20 @@ def kinetics_cma() -> PretrainConfig:
 
 
 def check_model_dtype(spec, device: str | torch.device) -> None:
-    """``model.dtype`` (avid_cma_tpu/train/builders.py:20-42): ``auto``
-    computes the convolutions in bf16 on the card and f32 on the CPU;
-    ``bfloat16`` is the card's and ``float32`` the CPU's. ``float32`` on
-    the card raises: the stem kernels K2/K3 take bf16 only (ROADMAP A4's
-    open point), and nothing falls back to another dtype."""
-    spec = "auto" if spec is None else str(spec)
-    names = {"auto": None, "float32": "f32", "f32": "f32", "bfloat16": "bf16", "bf16": "bf16"}
-    if spec not in names:
-        raise ValueError(f"unknown model.dtype {spec!r}: expected auto|float32|bfloat16")
-    want, dev = names[spec], torch.device(device).type
-    if want == "f32" and dev == "cuda":
-        raise NotImplementedError(
-            "model.dtype=float32 on the card is not ported: the stem kernels K2/K3 "
-            "take bf16 only (ROADMAP A4); use model.dtype=auto or bfloat16")
-    if want == "bf16" and dev == "cpu":
-        raise NotImplementedError(
-            "model.dtype=bfloat16 on the CPU is not ported: the CPU path computes "
-            "f32; use model.dtype=auto or float32")
+    """Raise unless ``model.dtype`` = ``spec`` runs on ``device``
+    (avid_cma_tpu/train/builders.py:20-42): ``auto``, ``float32`` and
+    ``bfloat16`` on the card (the stem kernels K2/K3 and K5 have bf16 and
+    f32 forms); ``auto`` and ``float32`` on the CPU, whose path computes
+    f32 only (``bfloat16`` raises there). ``compute_dtype`` gives the
+    dtype."""
+    compute_dtype(device, spec)
 
 
-def build_preprocess_config(db_cfg: Config) -> PreprocessConfig:
+def build_preprocess_config(db_cfg: Config, model_dtype=None) -> PreprocessConfig:
     """Dispatch on the dataset's ``transform:``/``transforms:`` key
     (reference: utils/eval_utils.py:70-87, utils/main_utils.py:151-165;
-    unknown values raise there and here).
+    unknown values raise there and here). The clips come out in the
+    compute dtype of ``model_dtype``, the model's ``model.dtype``.
 
     Reference quirk kept: for 'crop+color' the reference dispatch passes
     ONLY crop/num_frames/pad_missing/augment (utils/eval_utils.py:80-85),
@@ -214,6 +206,7 @@ def build_preprocess_config(db_cfg: Config) -> PreprocessConfig:
         n_fft=int(db_cfg.get("n_fft", 512)),
         spectrogram_fps=float(db_cfg.get("spectrogram_fps", 100.0)),
         audio_clip_duration=float(db_cfg.get("audio_clip_duration", 2.0)),
+        model_dtype="auto" if model_dtype is None else str(model_dtype),
     )
 
 
@@ -232,7 +225,7 @@ def pretrain_config(cfg: Config, num_data: Optional[int] = None) -> PretrainConf
     loss = cfg.loss.get("args", {})
     sampling = loss.get("sampling_args", {}) or {}
     within = loss.get("num_negatives_within", 64)
-    pp = build_preprocess_config(db)
+    pp = build_preprocess_config(db, cfg.model.get("dtype"))
     proj = args.get("proj_dim", 128)
     return PretrainConfig(
         seed=int(cfg.get("seed", 0)),
@@ -268,7 +261,7 @@ def pretrain_config(cfg: Config, num_data: Optional[int] = None) -> PretrainConf
         mining_exact=bool(sampling.get("exact", True)),
         resample_freq=int(loss.get("resample_freq", -1)),
         min_area=pp.min_area, color=pp.color, resize=pp.resize,
-        jitter_order=pp.jitter_order,
+        jitter_order=pp.jitter_order, model_dtype=pp.model_dtype,
     )
 
 
@@ -363,7 +356,7 @@ def _build_state(cfg: PretrainConfig, device: str | torch.device
         cfg.video_backbone, {"depth": cfg.video_depth},
         cfg.audio_backbone, {"depth": cfg.audio_depth},
         proj_dim=list(cfg.proj_dim), seed=cfg.seed,
-        device=dev)
+        device=dev, dtype=cfg.model_dtype)
     optimizer = build_optimizer(model.parameters(), cfg.optimizer, cfg.base_lr,
                                 weight_decay=cfg.weight_decay)
     scheduler = multistep_scheduler(optimizer, cfg.milestones, cfg.gamma)

@@ -403,7 +403,7 @@ class CheckpointManager:
 # warm starts from the port's own runs
 # ---------------------------------------------------------------------------
 
-def _latest_run_payload(path: str) -> Dict[str, Any]:
+def latest_run_payload(path: str) -> Dict[str, Any]:
     """The newest checkpoint's payload under a port run's directory
     (``<model_dir>/<name>``) or its ``checkpoints/``."""
     directory = os.path.join(path, "checkpoints")
@@ -419,13 +419,13 @@ def _latest_run_payload(path: str) -> Dict[str, Any]:
 def import_model_run(path: str) -> Dict[str, torch.Tensor]:
     """The model state_dict of a port run's newest checkpoint (the model
     half of the AVID -> AVID-CMA chain)."""
-    return _latest_run_payload(path)["model"]
+    return latest_run_payload(path)["model"]
 
 
 def import_criterion_run(path: str, device: str | torch.device = "cpu") -> BankState:
     """The banks and the frozen Z of a port run's newest checkpoint (no
     positive set: the AVID-CMA run mines its own)."""
-    bank = _latest_run_payload(path)["bank"]
+    bank = latest_run_payload(path)["bank"]
     dev = torch.device(device)
     return BankState(view1_mem=bank["view1_mem"].to(dev, torch.float32),
                      view2_mem=bank["view2_mem"].to(dev, torch.float32),

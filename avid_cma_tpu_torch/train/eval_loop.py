@@ -303,30 +303,43 @@ def _train_epochs(state: TrainState, fused_step: Callable, loader, epochs: int,
 # orchestration
 # ---------------------------------------------------------------------------
 
+def pretrained_state(model_cfg: Config) -> Tuple[Optional[Dict[str, torch.Tensor]],
+                                                  Optional[str]]:
+    """The model state_dict of the pretraining run ``<model_dir>/<name>``
+    and where it came from: its ``checkpoint.pth.tar`` if it exists, else
+    the newest checkpoint of the port's run there, else (None, None)."""
+    base = os.path.join(model_cfg["model_dir"], model_cfg["name"])
+    pth = os.path.join(base, "checkpoint.pth.tar")
+    if os.path.isfile(pth):
+        return import_model_pth_tar(pth), pth
+    if os.path.isdir(base):
+        try:
+            return import_model_run(base), base
+        except FileNotFoundError:
+            pass
+    return None, None
+
+
+def video_backbone(model_cfg: Config, device: torch.device) -> torch.nn.Module:
+    """The model config's video backbone (on the CPU, random weights from
+    its seed), computing in the dtype of its ``model.dtype`` on
+    ``device`` (``compute_dtype``: by default bf16 on the card, f32 on
+    the CPU)."""
+    args = model_cfg["args"]
+    backbone = BACKBONES[args["video_backbone"]](
+        **dict(args.get("video_backbone_args", {})),
+        dtype=compute_dtype(device, model_cfg.get("dtype")))
+    init_params(backbone, torch.Generator().manual_seed(int(model_cfg.get("seed", 0))))
+    return backbone
+
+
 def load_backbone(model_cfg: Config, device: torch.device, which: str = "video_model"
                    ) -> Tuple[torch.nn.Module, Optional[str]]:
     """The pretrained video backbone on ``device`` and where its weights
-    came from (eval_loop.py:214-253): ``<model_dir>/<name>/
-    checkpoint.pth.tar`` if it exists, else the newest checkpoint of the
-    port's pretraining run in ``<model_dir>/<name>``, else None (random
-    weights from the model config's seed; the caller warns). Convolutions
-    compute in bf16 on the card, f32 on the CPU; ``model.dtype: float32``
-    on the card raises (ROADMAP A4)."""
-    builders.check_model_dtype(model_cfg.get("dtype"), device)
-    args = model_cfg["args"]
-    backbone = BACKBONES[args["video_backbone"]](
-        **dict(args.get("video_backbone_args", {})), dtype=compute_dtype(device))
-    init_params(backbone, torch.Generator().manual_seed(int(model_cfg.get("seed", 0))))
-    base = os.path.join(model_cfg["model_dir"], model_cfg["name"])
-    pth = os.path.join(base, "checkpoint.pth.tar")
-    full, source = None, None
-    if os.path.isfile(pth):
-        full, source = import_model_pth_tar(pth), pth
-    elif os.path.isdir(base):
-        try:
-            full, source = import_model_run(base), base
-        except FileNotFoundError:
-            pass
+    came from (eval_loop.py:214-253): ``pretrained_state``'s, else None
+    (random weights from the model config's seed; the caller warns)."""
+    backbone = video_backbone(model_cfg, device)
+    full, source = pretrained_state(model_cfg)
     if full is not None:
         prefix = which + "."
         backbone.load_state_dict({k[len(prefix):]: v for k, v in full.items()
@@ -383,7 +396,7 @@ def run_action_recognition(eval_cfg: Config, model_cfg: Config, fold: Optional[i
     workers = 1 if debug else int(eval_cfg.get("num_workers", 4))
     train_loader = builders.build_dataloader(train_ds, db, db.train, workers)
     test_loader = builders.build_dataloader(test_ds, db, db.test, workers)
-    pp_cfg = builders.build_preprocess_config(db)
+    pp_cfg = builders.build_preprocess_config(db, model_cfg.get("dtype"))
 
     backbone, source = load_backbone(model_cfg, dev)
     margs = eval_cfg.model["args"]
@@ -501,7 +514,7 @@ def run_linear_probe(eval_cfg: Config, model_cfg: Config, fold: int = 1, debug: 
     workers = 1 if debug else int(eval_cfg.get("num_workers", 4))
     train_loader = builders.build_dataloader(train_ds, db, db.train, workers)
     test_loader = builders.build_dataloader(test_ds, db, db.test, workers)
-    pp_cfg = builders.build_preprocess_config(db)
+    pp_cfg = builders.build_preprocess_config(db, model_cfg.get("dtype"))
 
     backbone, source = load_backbone(model_cfg, dev)
     margs = eval_cfg.model["args"]

@@ -10,7 +10,9 @@
    stage shapes) and of the eval paths (K2/K3 on the 32at16 finetune's
    3.3 GB stem, its first and last images and da/db over all of it; K5
    at the four stage shapes at 64 and 128 clips, the clip test's and the
-   probe's batches), and times kernel and plain version with CUDA events
+   probe's batches; K2/K3's f32 forms, for ``model.dtype: float32``, at
+   both stem shapes, the 32at16 one 6.6 GB in f32), and times kernel and
+   plain version with CUDA events
    (K1's, K2's and K3's launches also apart, as device intervals in a
    torch.profiler trace; beside K1, cuBLAS's f32 product of its DFT's
    shape as a reference; K3's da/db must be the same bits on two calls).
@@ -25,7 +27,12 @@
    columns of a 1024-column draw, the within-modal negatives);
 3. runs one train step, and one eval-mode forward, at a small size on the
    card and on the CPU from the same weights and inputs and compares loss,
-   Z and bank rows, and the embeddings; then the AVID-CMA positive set of
+   Z and bank rows, and the embeddings; the train step again with
+   ``model.dtype: float32`` (loss and Z within 1e-4 of the CPU's, the
+   updated stem parameters too wherever Adam's step direction is settled,
+   the stem's gradients through K3's f32 form those through its plain
+   version, the f32 stem kernels launched); then the
+   AVID-CMA positive set of
    small random banks mined on both (equal), and one AVID-CMA train step
    on both from the same weights, banks, positive set and negatives;
 4. runs the Kinetics Cross-N1024 AVID pretraining slice at full width
@@ -105,9 +112,18 @@
    ``test_only`` (the same accuracies); checks that each loaded the AVID
    run's video model bit for bit and each kernel's launches over the four
    runs (each run's one-clip eval forward that sizes its heads included);
-13. prints one JSON line per check, a summary line per slice, the
-   ``{"kernels": [...]}`` line (launches: the AVID loop phase's and the
-   eval loops') and, last, ``{"ok": true, "device": ...}``.
+13. runs the f32 AVID learning proof (``scripts/learning_proof.py``: the
+   learnable synthetic corpus through ``run_pretraining``, then
+   retrieval on unseen instances and the ridge probe) at PROOF_EPOCHS
+   epochs: the probe gate, and each kernel's launches (the f32 forms of
+   K2/K3 only, none of the bf16 ones); then, from that f32 run, the
+   finetune and the probe entry points and ``classify`` with
+   ``model.dtype: float32`` (the f32 stem forms and K5 launched, no bf16
+   K2/K3);
+14. prints one JSON line per check, a summary line per slice, the
+   ``{"kernels": [...]}`` line (launches: the AVID loop phase's, the
+   eval loops', the learning proof's and the f32 evals') and, last,
+   ``{"ok": true, "device": ...}``.
 
 Every phase runs under the backend state the entry points set
 (``prepare_device``: TF32 off, cuDNN autotuning on), set before the
@@ -154,6 +170,7 @@ from avid_cma_tpu_torch.ops.kernels import (
     spectrogram,
     stem_pool,
 )
+from avid_cma_tpu_torch.scripts import classify, learning_proof
 from avid_cma_tpu_torch.scripts.r2p1d_block_bench import cudnn_bf16_pair, cudnn_weights
 from avid_cma_tpu_torch.train import builders, eval_loop
 from avid_cma_tpu_torch.train.builders import (
@@ -221,6 +238,12 @@ KERNELS = {
     "stem_pool_bwd": dict(
         name="K3 stem_pool_bwd", source="avid_cma_tpu_torch/csrc/stem_pool.cu",
         replaces="avid_cma_tpu/ops/pallas/stem_pool.py:272"),
+    "stem_pool_fwd_f32": dict(
+        name="K2 stem_pool_fwd f32", source="avid_cma_tpu_torch/csrc/stem_pool.cu",
+        replaces="avid_cma_tpu/ops/pallas/stem_pool.py:247"),
+    "stem_pool_bwd_f32": dict(
+        name="K3 stem_pool_bwd f32", source="avid_cma_tpu_torch/csrc/stem_pool.cu",
+        replaces="avid_cma_tpu/ops/pallas/stem_pool.py:272"),
     "nce_gather": dict(
         name="K4 nce_gather", source="avid_cma_tpu_torch/csrc/nce_gather.cu",
         replaces="avid_cma_tpu/ops/pallas/nce_gather.py:113"),
@@ -228,14 +251,18 @@ KERNELS = {
         name="K5 r2p1d_pair", source="avid_cma_tpu_torch/csrc/r2p1d_pair_mma.cu",
         replaces="avid_cma_tpu/ops/pallas/r2p1d_block.py:84"),
 }
+# the f32 forms of K2/K3 run only where model.dtype is float32: in the f32
+# step check, the learning-proof phase and the f32 evals; every bf16 path
+# launches none
+NO_F32_STEM = {"stem_pool_fwd_f32": 0, "stem_pool_bwd_f32": 0}
 EXPECTED_LAUNCHES = {"spectrogram": 5, "stem_pool_fwd": 5, "stem_pool_bwd": 5,
-                     "nce_gather": 20, "r2p1d_pair": 0}
+                     "nce_gather": 20, "r2p1d_pair": 0, **NO_F32_STEM}
 # 5 eval steps: one spectrogram, one stem pool and 4 score launches each,
 # and K5 on the 13 stride-1 pairs of each forward; one embed call
 EXPECTED_EVAL_LAUNCHES = {"spectrogram": 5, "stem_pool_fwd": 5, "stem_pool_bwd": 0,
-                          "nce_gather": 20, "r2p1d_pair": 65}
+                          "nce_gather": 20, "r2p1d_pair": 65, **NO_F32_STEM}
 EXPECTED_EMBED_LAUNCHES = {"spectrogram": 0, "stem_pool_fwd": 1, "stem_pool_bwd": 0,
-                           "nce_gather": 0, "r2p1d_pair": 13}
+                           "nce_gather": 0, "r2p1d_pair": 13, **NO_F32_STEM}
 # the loop phase: Cross-N1024 from its YAML on the synthetic data layer. One
 # clip per video (the recipe takes 10), so 160 clips give 5 steps of 32.
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -249,17 +276,17 @@ LOOP_STEPS = 5  # train steps an epoch, and test steps an epoch
 # one stem pool forward, 4 score launches and K5 on the 13 stride-1 pairs
 EXPECTED_LOOP_LAUNCHES = {"spectrogram": 4 * LOOP_STEPS, "stem_pool_fwd": 4 * LOOP_STEPS,
                           "stem_pool_bwd": 2 * LOOP_STEPS, "nce_gather": 16 * LOOP_STEPS,
-                          "r2p1d_pair": 26 * LOOP_STEPS}
+                          "r2p1d_pair": 26 * LOOP_STEPS, **NO_F32_STEM}
 # AVID-CMA: 8 score launches a step (inst-v2a and inst-a2v: the self row
 # and the negatives; pos-v2v and pos-a2a: the positives and the first 64
 # negatives), against AVID's 4
 EXPECTED_CMA_LAUNCHES = {"spectrogram": 5, "stem_pool_fwd": 5, "stem_pool_bwd": 5,
-                         "nce_gather": 40, "r2p1d_pair": 0}
+                         "nce_gather": 40, "r2p1d_pair": 0, **NO_F32_STEM}
 CMA_LOOP_CONFIG = os.path.join(REPO, "configs/main/avid-cma/kinetics/"
                                      "InstX-N1024-PosW-N64-Top32.yaml")
 EXPECTED_CMA_LOOP_LAUNCHES = {"spectrogram": 4 * LOOP_STEPS, "stem_pool_fwd": 4 * LOOP_STEPS,
                               "stem_pool_bwd": 2 * LOOP_STEPS, "nce_gather": 32 * LOOP_STEPS,
-                              "r2p1d_pair": 26 * LOOP_STEPS}
+                              "r2p1d_pair": 26 * LOOP_STEPS, **NO_F32_STEM}
 # the action-recognition evals from their YAMLs: the UCF-101 full finetune
 # at 8 and 32 frames (batch 64) and the Kinetics-400 linear probe (batch
 # 128), raw frames at the configs' decode_size
@@ -306,6 +333,17 @@ MINING_SAMPLE_ROWS = 256
 # on the card host's CPU); a wrong or missing gradient gives about 0
 GRAD_COS_BF16 = 0.75
 CROP_COLOR_TOL = {"f32_max_abs": 1e-4, "bf16_max_abs": 0.6, "bf16_mean_abs": 0.02}
+# the f32 AVID step, card against CPU: ROADMAP's one-step parity gates
+# (the parameters' on the elements whose step direction is settled)
+F32_STEP_TOL = {"loss_rel": 1e-4, "z_rel": 1e-4, "stem_param_max_abs": 1e-4}
+# the learning-proof phase: the f32 AVID proof at the JAX script's
+# defaults but PROOF_EPOCHS epochs, not 400 (2.3 s an epoch on the H100
+# with its per-epoch test phase and checkpoint, so about 15 min in all: the
+# full proofs are recorded by their own runs); gated on the probe, which
+# clears its gate within 8 epochs; retrieval is printed, not gated (it
+# needs the full run)
+PROOF_EPOCHS = 16
+PROOF_K5_PER_FORWARD = 5  # stride-1 pairs of R2Plus1D-10
 
 
 def require(cond: bool, msg: str) -> None:
@@ -429,11 +467,19 @@ def check_stem_pool(results: dict) -> None:
                          ).cuda().to(torch.bfloat16)
     a_r = torch.from_numpy((rng.standard_normal(c) * 0.5 + 1.0).astype(np.float32)).cuda()
     b_r = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(np.float32)).cuda()
+    g32 = torch.from_numpy(rng.standard_normal((n, h // 2, w // 2, c), dtype=np.float32)).cuda()
     cases = {
         "random": (base.to(torch.bfloat16), a_r, b_r),
         # values on a 0.5 grid: ties in most windows
         "tie-heavy": (torch.round(base * 2.0).div(2.0).to(torch.bfloat16),
                       torch.ones_like(a_r), torch.zeros_like(b_r)),
+    }
+    # the f32 forms (model.dtype: float32): the same draws in f32, off the
+    # bf16 grid, and the same ties
+    f32_cases = {
+        "f32 random": (base, a_r, b_r),
+        "f32 tie-heavy": (torch.round(base * 2.0).div(2.0), torch.ones_like(a_r),
+                          torch.zeros_like(b_r)),
     }
     del base
     n_in, n_out = n * h * w * c, n * (h // 2) * (w // 2) * c
@@ -469,6 +515,50 @@ def check_stem_pool(results: dict) -> None:
                lambda: stem_pool.stem_pool_bwd(y, a, b, g),
                lambda: stem_pool.plain_bwd(y, a, b, g),
                n_in * 2 * 2 + n_out * 2 + 4 * c * 4, 0.0, iters=10)
+    del cases
+    for case, (y, a, b) in f32_cases.items():
+        check_stem_pool_f32(results, case, y, a, b, g32)
+
+
+def _max_rel(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max |got - ref|, that over max |ref|)."""
+    err = float((got - ref).abs().max())
+    return err, err / float(ref.abs().max())
+
+
+def check_stem_pool_f32(results: dict, case: str, y, a, b, g) -> None:
+    """K2 and K3's f32 forms against their plain versions on the same
+    inputs: the output within 1e-6 of the largest (same math, so it is
+    exact in practice), dy within 1e-6, da and db within 1e-5, da/db the
+    same bits on two calls."""
+    n, h, w, c = y.shape
+    n_in, n_out = n * h * w * c, n * (h // 2) * (w // 2) * c
+    err, rel = _max_rel(stem_pool.stem_pool_fwd(y, a, b), stem_pool.plain_fwd(y, a, b))
+    split = launch_split_ms(lambda: stem_pool.stem_pool_fwd(y, a, b),
+                            ("stem_pool_fwd_f32_kernel",))
+    report(results, "stem_pool_fwd_f32", case, err, rel, 1e-6,
+           lambda: stem_pool.stem_pool_fwd(y, a, b), lambda: stem_pool.plain_fwd(y, a, b),
+           n_in * 4 + n_out * 4 + 2 * c * 4, 0.0, extra={"launch_ms": split})
+
+    dy, da, db = stem_pool.stem_pool_bwd(y, a, b, g)
+    _, da2, db2 = stem_pool.stem_pool_bwd(y, a, b, g)
+    same_bits = bool(torch.equal(da, da2) and torch.equal(db, db2))
+    rdy, rda, rdb = stem_pool.plain_bwd(y, a, b, g)
+    err, rel = _max_rel(dy, rdy)
+    del dy, rdy
+    rel_a, rel_b = _max_rel(da, rda)[1], _max_rel(db, rdb)[1]
+    split = launch_split_ms(lambda: stem_pool.stem_pool_bwd(y, a, b, g),
+                            ("stem_pool_argmax_f32_kernel", "stem_pool_bwd_f32_kernel",
+                             "stem_pool_bwd_f32_sum_kernel"))
+    print(json.dumps({"name": KERNELS["stem_pool_bwd_f32"]["name"], "case": case,
+                      "da_rel": rel_a, "db_rel": rel_b, "tol": 1e-5,
+                      "da_db_same_bits_twice": same_bits, "launch_ms": split}), flush=True)
+    require(max(rel_a, rel_b) <= 1e-5, f"K3 f32 ({case}): da/db off by {rel_a}, {rel_b}")
+    require(same_bits, f"K3 f32 ({case}): da/db differ between two calls")
+    report(results, "stem_pool_bwd_f32", case, err, rel, 1e-6,
+           lambda: stem_pool.stem_pool_bwd(y, a, b, g),
+           lambda: stem_pool.plain_bwd(y, a, b, g),
+           n_in * 4 * 2 + n_out * 4 + 4 * c * 4, 0.0, iters=10)
 
 
 def check_stem_pool_32at16(results: dict) -> None:
@@ -520,6 +610,52 @@ def check_stem_pool_32at16(results: dict) -> None:
     report(results, "stem_pool_bwd", case, err, ulps, 1.0,
            lambda: stem_pool.stem_pool_bwd(y, a, b, g), plain_sums,
            n_in * 2 * 2 + n_out * 2 + 4 * c * 4, 0.0, iters=3, extra=extra)
+    del y, g
+    torch.cuda.empty_cache()
+    check_stem_pool_32at16_f32(results, gen, a, b, chunks, ends, extra)
+
+
+def check_stem_pool_32at16_f32(results: dict, gen, a, b, chunks, ends, extra) -> None:
+    """K2 and K3's f32 forms at the 32at16 stem in f32 (6.6 GB, three
+    times past 2^31 bytes): the first and last two images against the
+    plain versions (K2 within 1e-6 of the largest, dy within 1e-6), da and
+    db against the plain versions' sums over every chunk (1e-5)."""
+    n, h, w, c = STEM_SHAPE_32AT16
+    y = torch.randn(STEM_SHAPE_32AT16, generator=gen, device="cuda")
+    g = torch.randn((n, h // 2, w // 2, c), generator=gen, device="cuda")
+    require(y.numel() * y.element_size() > 3 * 2**31, "the f32 32at16 stem is under 6 GiB")
+    case = f"f32 32at16 stem {list(STEM_SHAPE_32AT16)}, first and last 2 images"
+    n_in, n_out = n * h * w * c, n * (h // 2) * (w // 2) * c
+
+    out = stem_pool.stem_pool_fwd(y, a, b)
+    err, rel = 0.0, 0.0
+    for r in ends:
+        e, q = _max_rel(out[r], stem_pool.plain_fwd(y[r], a, b))
+        err, rel = max(err, e), max(rel, q)
+    del out
+    report(results, "stem_pool_fwd_f32", case, err, rel, 1e-6,
+           lambda: stem_pool.stem_pool_fwd(y, a, b),
+           lambda: [stem_pool.plain_fwd(y[r], a, b) for r in chunks],
+           n_in * 4 + n_out * 4 + 2 * c * 4, 0.0, iters=5, extra=extra)
+
+    def plain_sums():
+        parts = [stem_pool.plain_bwd(y[r], a, b, g[r])[1:] for r in chunks]
+        return sum(p[0] for p in parts), sum(p[1] for p in parts)
+
+    dy, da, db = stem_pool.stem_pool_bwd(y, a, b, g)
+    err, rel = 0.0, 0.0
+    for r in ends:
+        e, q = _max_rel(dy[r], stem_pool.plain_bwd(y[r], a, b, g[r])[0])
+        err, rel = max(err, e), max(rel, q)
+    del dy
+    rda, rdb = plain_sums()
+    rel_a, rel_b = _max_rel(da, rda)[1], _max_rel(db, rdb)[1]
+    print(json.dumps({"name": KERNELS["stem_pool_bwd_f32"]["name"], "case": case,
+                      "da_rel": rel_a, "db_rel": rel_b, "tol": 1e-5}), flush=True)
+    require(max(rel_a, rel_b) <= 1e-5, f"K3 f32 ({case}): da/db off by {rel_a}, {rel_b}")
+    report(results, "stem_pool_bwd_f32", case, err, rel, 1e-6,
+           lambda: stem_pool.stem_pool_bwd(y, a, b, g), plain_sums,
+           n_in * 4 * 2 + n_out * 4 + 4 * c * 4, 0.0, iters=3, extra=extra)
 
 
 def check_nce_gather(results: dict) -> None:
@@ -675,6 +811,174 @@ def check_small_step() -> None:
                                                        "min_bank_row_cos": 0.99}}), flush=True)
     require(loss_rel <= 2e-2 and z_rel <= 2e-2 and cos >= 0.99,
             f"small step: card and CPU disagree (loss {loss_rel}, Z {z_rel}, cos {cos})")
+
+
+def check_small_step_f32() -> None:
+    """One AVID train step with ``model.dtype: float32`` on the card (f32
+    convolutions, the f32 forms of K2/K3) and on the CPU from the same
+    weights, banks, batch and negatives. The batch is the same
+    preprocessed tensors on both (the fused step draws its augmentation
+    from a generator of the batch's device, whose streams differ).
+
+    Gates (F32_STEP_TOL, ROADMAP's one-step parity): the loss and Z within
+    1e-4 of the CPU's; the updated stem conv weight and stem BN weight and
+    bias within 1e-4 wherever the step's direction is settled. Adam's
+    first step moves each element by lr * g / (|g| + eps), about lr times
+    the sign of g, so an element whose gradient lies closer to 0 than the
+    card's and the CPU's gradients are to each other may step either way:
+    those may differ by up to 2 lr (the max pools route a gradient to the
+    first of near-equal values, and the card's convolutions round
+    differently, so a few windows route elsewhere). On the card, the
+    stem's gradients through K3's f32 form equal those through its plain
+    version within 1e-5 (the same forward), and the step launches the f32
+    stem kernels once each and no bf16 form."""
+    rng = np.random.default_rng(8)
+    n, k, b, lr = 256, 64, 8, 2e-4
+    batch = {"frames": rng.standard_normal((b, 8, 64, 64, 3), dtype=np.float32),
+             "audio": rng.standard_normal((b, 40, 257, 1), dtype=np.float32),
+             "index": rng.choice(n, b, replace=False)}
+    negs = rng.integers(0, n, (b, k))
+    banks = rng.standard_normal((2, n, 128), dtype=np.float32)
+    banks /= np.linalg.norm(banks, axis=2, keepdims=True)
+    crit = AVIDConfig(num_data=n, num_negatives=k, momentum=0.5)
+
+    def step(dev):
+        model = av_wrapper("R2Plus1D", {"depth": 10}, "Conv2D", {"depth": 10},
+                           proj_dim=[512, 512, 128], seed=0, device=dev, dtype="float32")
+        opt = build_optimizer(model.parameters(), "adam", lr, weight_decay=1e-5)
+        bank = BankState(*(torch.from_numpy(m.copy()).to(dev) for m in banks),
+                         z=torch.tensor(-1.0, device=dev))
+        state = TrainState(model, opt, multistep_scheduler(opt, [], 1.0), bank,
+                           torch.Generator(device=dev))
+        _lib.reset_launches()
+        m = make_train_step(crit)(
+            state, {key: torch.from_numpy(v).to(dev) for key, v in batch.items()},
+            neg_idx=torch.from_numpy(negs).to(dev))
+        stem = [p for m_ in model.video_model.conv1 for p in m_.parameters()]
+        return {"loss": float(m["loss"]), "z": float(state.bank.z),
+                "params": [p.detach().cpu() for p in stem],
+                "grads": [p.grad.cpu() for p in stem], "launches": dict(_lib.LAUNCHES)}
+
+    cpu, card = step("cpu"), step("cuda")
+    with plain_stem_backward():
+        twin = step("cuda")
+    want = {**dict.fromkeys(_lib.LAUNCHES, 0), "stem_pool_fwd_f32": 1, "stem_pool_bwd_f32": 1,
+            "nce_gather": 4}
+    require(card["launches"] == want, f"f32 step launched {card['launches']}, expected {want}")
+    require(not any(cpu["launches"].values()), f"the CPU step launched {cpu['launches']}")
+    settled_err, unsettled_err, unsettled, over_tol = 0.0, 0.0, 0, 0
+    for p, q, g, h in zip(card["params"], cpu["params"], card["grads"], cpu["grads"]):
+        diff = (p - q).abs()
+        over_tol += int((diff > F32_STEP_TOL["stem_param_max_abs"]).sum())
+        settled = h.abs() > (g - h).abs().max()
+        if bool(settled.any()):
+            settled_err = max(settled_err, float(diff[settled].max()))
+        if not bool(settled.all()):
+            unsettled_err = max(unsettled_err, float(diff[~settled].max()))
+            unsettled += int((~settled).sum())
+    line = {"name": "small f32 step, card vs CPU", "loss_cuda": card["loss"],
+            "loss_cpu": cpu["loss"], "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+            "z_rel": abs(card["z"] - cpu["z"]) / abs(cpu["z"]),
+            "stem_param_max_abs": settled_err,
+            "stem_param_max_abs_all": max(settled_err, unsettled_err),
+            "unsettled_elements": unsettled, "unsettled_max_abs": unsettled_err,
+            "elements_over_tol": over_tol,
+            "stem_params": sum(p.numel() for p in cpu["params"]),
+            "stem_grad_rel_vs_cpu": [_max_rel(g, h)[1] for g, h in zip(card["grads"],
+                                                                        cpu["grads"])],
+            "stem_grad_rel_k3_vs_plain": [_max_rel(g, h)[1] for g, h in zip(card["grads"],
+                                                                             twin["grads"])],
+            "launches_cuda": card["launches"], "tol": F32_STEP_TOL}
+    print(json.dumps(line), flush=True)
+    for key, tol in F32_STEP_TOL.items():
+        require(line[key] <= tol, f"small f32 step: {key} {line[key]} > {tol}")
+    require(unsettled_err <= 2 * lr + F32_STEP_TOL["stem_param_max_abs"],
+            f"small f32 step: an unsettled element moved {unsettled_err}, more than 2 lr")
+    require(max(line["stem_grad_rel_k3_vs_plain"]) <= 1e-5,
+            f"the stem's gradients through K3 f32 and through its plain version differ "
+            f"({line['stem_grad_rel_k3_vs_plain']})")
+
+
+def proof_launches(args) -> dict:
+    """Each kernel's launches in the f32 AVID learning proof of ``args``:
+    per epoch the train steps (K1, K2, K3 f32, 4 x K4) and the test phase
+    over the test split of train-size items (K1, K2 f32, 4 x K4, K5 on
+    every stride-1 pair), then the three extractions (NCE space of the
+    test instances: K1, K2, K5; pool taps of the train and the test
+    instances: K2, K5)."""
+    e, bs = args.epochs, args.batch
+    train, test = args.train_size // bs, -(-args.train_size // bs)
+    nce, taps = -(-args.test_size // bs), -(-args.train_size // bs) + -(-args.test_size // bs)
+    return {**dict.fromkeys(_lib.LAUNCHES, 0),
+            "spectrogram": e * (train + test) + nce,
+            "stem_pool_fwd_f32": e * (train + test) + nce + taps,
+            "stem_pool_bwd_f32": e * train,
+            "nce_gather": 4 * e * (train + test),
+            "r2p1d_pair": PROOF_K5_PER_FORWARD * (e * test + nce + taps)}
+
+
+def run_learning_proof(model_dir: str) -> dict:
+    """The f32 AVID learning proof (``scripts/learning_proof.py``: the
+    learnable synthetic corpus through ``run_pretraining``, then
+    retrieval on unseen instances and the ridge probe) at PROOF_EPOCHS
+    epochs, the launch counters reset just before it: the probe gate, the
+    launches of each kernel (the f32 stem forms only, no bf16 one)."""
+    args = learning_proof.build_argparser().parse_args(
+        ["--epochs", str(PROOF_EPOCHS), "--model-dir", model_dir, "--device", "cuda"])
+    os.makedirs(model_dir, exist_ok=True)
+    with loop_log(os.path.join(model_dir, "proof_stdout.log"), "learning proof"):
+        _lib.reset_launches()
+        record = learning_proof.run_proof(args)
+        torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    want = proof_launches(args)
+    require(launches == want, f"learning proof launched {launches}, expected {want}")
+    require(record["compute_dtype"] == "float32", f"proof computed {record['compute_dtype']}")
+    require(record["pass_probe"], f"learning proof: probe top-1 {record['probe_top1']} under "
+            f"{args.probe_factor} x chance {record['chance_top1']}")
+    return {**record, "gated": ["pass_probe"], "launches": launches}
+
+
+def run_f32_evals(proof_dir: str) -> dict:
+    """The eval entry points and ``classify`` with ``model.dtype:
+    float32`` on the card, from the learning-proof phase's f32 AVID run
+    (R2Plus1D-10) in ``proof_dir``: ``run_action_recognition`` on the
+    8at16 YAML and ``run_linear_probe`` on the linear YAML with the eval
+    loops' overrides, then ``classify_videos`` of two synthetic files
+    from the finetune's best checkpoint. Accuracies in range, one
+    probability distribution a file; the launches, counters reset just
+    before: the f32 stem forms and K5, no bf16 K2/K3, no K1 or K4."""
+    mcfg = config_lib.load(os.path.join(proof_dir, "learning-proof", "config.yaml")).model
+    require(mcfg.get("dtype") == "float32", f"the proof's run has model.dtype {mcfg.get('dtype')}")
+    runs = (("finetune", eval_loop.run_action_recognition, UCF_8AT16, FT_LOOP_OVERRIDES),
+            ("probe", eval_loop.run_linear_probe, KINETICS_LINEAR, PROBE_LOOP_OVERRIDES))
+    out = {}
+    with loop_log(os.path.join(proof_dir, "f32_evals_stdout.log"), "f32 evals"):
+        _lib.reset_launches()
+        for name, run, path, overrides in runs:
+            t0 = time.perf_counter()
+            res = run(config_lib.load(path, overrides), mcfg, fold=1, device="cuda")
+            torch.cuda.synchronize()
+            out[name] = {"results": res, "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        probs, kind = classify.classify_videos(config_lib.load(UCF_8AT16, FT_LOOP_OVERRIDES), mcfg,
+                                               ["f32_a.mp4", "f32_b.mp4"], fold=1, clips=2,
+                                               device="cuda")
+        out["classify"] = {"checkpoint": kind, "top1": probs.argmax(1).tolist(),
+                           "s": time.perf_counter() - t0}
+        launches = dict(_lib.LAUNCHES)
+    flat = list(out["finetune"]["results"].values()) + [
+        x for tap in out["probe"]["results"].values() for x in tap.values()]
+    require(all(0.0 <= v <= 100.0 for v in flat), f"f32 eval accuracies {flat}")
+    require(kind == "checkpoints_best" and probs.shape == (2, 101) and np.isfinite(probs).all()
+            and float(np.abs(probs.sum(1) - 1).max()) < 1e-5,
+            f"classify: {kind}, probabilities {probs.shape}, sums {probs.sum(1)}")
+    require(launches["stem_pool_fwd"] == launches["stem_pool_bwd"] == 0
+            and launches["spectrogram"] == launches["nce_gather"] == 0,
+            f"the f32 evals launched {launches}")
+    require(min(launches["stem_pool_fwd_f32"], launches["stem_pool_bwd_f32"],
+                launches["r2p1d_pair"]) > 0, f"the f32 evals launched {launches}")
+    return {**out, "launches": launches}
 
 
 def check_small_eval() -> None:
@@ -1044,7 +1348,7 @@ def run_cma_slice() -> dict:
 def eval_launches(k2: int, k3: int, k5: int) -> dict:
     """Launch counts of the eval paths' kernels (K2, K3, K5; no K1, K4)."""
     return {"spectrogram": 0, "stem_pool_fwd": k2, "stem_pool_bwd": k3, "nce_gather": 0,
-            "r2p1d_pair": k5}
+            "r2p1d_pair": k5, **NO_F32_STEM}
 
 
 def per_step(kind: str, steps: int) -> dict:
@@ -1637,6 +1941,7 @@ def main() -> None:
     check_nce_gather(results)
     check_r2p1d_pair(results)
     check_small_step()
+    check_small_step_f32()
     check_small_eval()
     check_small_cma_step()
     torch.cuda.empty_cache()
@@ -1699,13 +2004,26 @@ def main() -> None:
                           f"kinetics/8x224x224-linear.yaml (synthetic {PROBE_VIDEOS} videos, "
                           f"b{PROBE_BATCH}, 1 epoch, dense), each again with test_only, from "
                           "the Cross-N1024 run", **evl}), flush=True)
+        torch.cuda.empty_cache()
+        proof = run_learning_proof(os.path.join(model_dir, "proof"))
+        print(json.dumps({"config": "scripts/learning_proof.py f32 AVID, R2Plus1D-10+Conv2D-10, "
+                          "128 train / 64 test learnable instances, b16 8x56^2, "
+                          f"{PROOF_EPOCHS} epochs", **proof}), flush=True)
+        f32_evals = run_f32_evals(os.path.join(model_dir, "proof"))
+        print(json.dumps({"card": smi, "config": "model.dtype float32: run_action_recognition "
+                          "ucf/8at16-fold1.yaml and run_linear_probe kinetics/8x224x224-linear.yaml "
+                          "(the eval loops' overrides) from the proof's R2Plus1D-10 run, then "
+                          "classify of 2 files", **f32_evals}), flush=True)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
-    # each kernel's launches on the main path: the pretraining entry point's
-    # two runs (train steps run K1-K4, its test phases K1, K2, K4 and K5)
-    # and the eval entry points' four runs (K2, K3, K5)
-    launches = {k: loop["launches"][k] + evl["launches"][k] for k in KERNELS}
+    # each kernel's launches on the main paths: the pretraining entry
+    # point's two runs (train steps run K1-K4, its test phases K1, K2, K4
+    # and K5), the eval entry points' four runs (K2, K3, K5), all bf16, and
+    # the f32 learning proof (K1, the f32 forms of K2 and K3, K4, K5) and
+    # the f32 evals (the f32 forms of K2 and K3, K5)
+    launches = {k: sum(p["launches"][k] for p in (loop, evl, proof, f32_evals))
+                for k in KERNELS}
     kernels = []
     for key, meta in KERNELS.items():
         r = results[key]

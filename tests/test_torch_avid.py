@@ -14,6 +14,7 @@ import torch
 import avid_cma_tpu.criterions.avid as jax_avid
 from avid_cma_tpu_torch.criterions import avid as port
 from avid_cma_tpu_torch.ops.sampling import draw_negatives_uniform
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 N, D, K, B = 64, 128, 16, 6
 TOL = 1e-4

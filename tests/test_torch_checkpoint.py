@@ -32,6 +32,7 @@ from avid_cma_tpu_torch.train.checkpoint import (
 )
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 LR, WD, N, D = 2e-4, 1e-5, 12, 16
 

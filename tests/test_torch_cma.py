@@ -49,7 +49,10 @@ from avid_cma_tpu_torch.train.checkpoint import flax_to_port_state
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
 from avid_cma_tpu_torch.train.step import init_train_state, make_eval_loss_step, make_train_step
-from tests.test_torch_models import random_variables
+from tests.test_torch_models import (  # noqa: F401  (autouse fixture)
+    random_variables,
+    torch_threads_per_worker,
+)
 
 TOL = 1e-4
 D = 128

@@ -27,6 +27,7 @@ from avid_cma_tpu_torch.train.builders import (
     pretrain_config,
 )
 from avid_cma_tpu_torch.train.loop import check_ported
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = sorted((REPO / "configs").rglob("*.yaml"))

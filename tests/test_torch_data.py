@@ -17,6 +17,7 @@ from avid_cma_tpu_torch.config import from_dict
 from avid_cma_tpu_torch.data import decode
 from avid_cma_tpu_torch.data.prefetch import device_prefetch
 from avid_cma_tpu_torch.train import builders
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 
 def _db(name):

@@ -35,7 +35,10 @@ from avid_cma_tpu_torch.train.step import (
     make_eval_loss_step,
     make_fused_eval_step,
 )
-from tests.test_torch_models import random_variables
+from tests.test_torch_models import (  # noqa: F401  (autouse fixture)
+    random_variables,
+    torch_threads_per_worker,
+)
 
 TOL = 1e-4
 B, N, K, D = 4, 64, 16, 128

@@ -67,7 +67,10 @@ from avid_cma_tpu_torch.train.checkpoint import (
 )
 from avid_cma_tpu_torch.train.optim import build_from_config, build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
-from tests.test_torch_models import random_variables
+from tests.test_torch_models import (  # noqa: F401  (autouse fixture)
+    random_variables,
+    torch_threads_per_worker,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, CLIP, NCLS = 8, (4, 32, 32), 7

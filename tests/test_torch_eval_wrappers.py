@@ -15,6 +15,7 @@ carried over by ``flax_eval_to_port_state`` (strict load):
   gives the JAX backbone's tap shapes and leaves the backbone's mode,
   parameters and BN running stats as they were."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +30,10 @@ from avid_cma_tpu_torch.models.eval_wrappers import ClassificationWrapper, MOSTM
 from avid_cma_tpu_torch.models.video import R2Plus1D
 from avid_cma_tpu_torch.ops.pooling import apply_pooling_op, parse_pooling_op, pooled_shape
 from avid_cma_tpu_torch.train.checkpoint import flax_eval_to_port_state
-from tests.test_torch_models import random_variables
+from tests.test_torch_models import (  # noqa: F401  (autouse fixture)
+    random_variables,
+    torch_threads_per_worker,
+)
 
 TOL = 1e-4
 CLIP = (8, 4, 32, 32, 3)
@@ -80,16 +84,23 @@ def _state(model):
     return {k: v.clone() for k, v in model.state_dict().items()}
 
 
-@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
-def test_tap_shapes_match_jax_and_leave_the_backbone_as_it_was(train):
-    x = _clips(4)
+@pytest.fixture(scope="module")
+def jax_tap_shapes():
+    """The JAX backbone's tap shapes at CLIP, once for every case (traced
+    with ``jax.eval_shape``: the shapes ``apply`` gives, without running it)."""
+    x = jnp.asarray(_clips(4))
     jm = JaxR2Plus1D(depth=10)
-    taps = jm.apply(random_variables(jm, 6, jnp.asarray(x)), jnp.asarray(x), train=False,
-                    return_embs=True)
+    taps = jax.eval_shape(lambda v: jm.apply(v, x, train=False, return_embs=True),
+                          random_variables(jm, 6, x))
+    return {k: tuple(v.shape[1:]) for k, v in taps.items()}
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_tap_shapes_match_jax_and_leave_the_backbone_as_it_was(train, jax_tap_shapes):
     net = R2Plus1D(10).train(train)
     init_params(net, torch.Generator().manual_seed(0))
     before = _state(net)
-    assert tap_shapes(net, CLIP[1:4]) == {k: tuple(v.shape[1:]) for k, v in taps.items()}
+    assert tap_shapes(net, CLIP[1:4]) == jax_tap_shapes
     assert net.training == train
     assert all(torch.equal(v, before[k]) for k, v in net.state_dict().items())
 

@@ -7,7 +7,9 @@ copy; the AVID-CMA path: K4 at its index shapes, the mining sweep on
 the card against the CPU, and one CMA train step on the card against the
 CPU; and the eval paths: K5 at T = 32 and at B = 128, K2/K3 at the 32at16
 stem (3.3 GB, its last images), and the launches of the warmup, finetune,
-clip-test and probe steps.
+clip-test and probe steps; the f32 forms of K2/K3 (``model.dtype:
+float32``) at ragged shapes, with ties, through autograd, and their
+input checks.
 
 Needs an NVIDIA card; skips without one. Imports no JAX, so it runs on a
 card host without it:
@@ -217,6 +219,88 @@ def test_scale_relu_pool_autograd_on_card(dev):
     assert y.grad.dtype == torch.bfloat16 and a.grad.shape == (64,)
 
 
+def _stem_inputs_f32(dev, shape, ties, seed=1):
+    y, a, b, g = _stem_inputs(dev, shape, ties, seed)
+    rng = np.random.default_rng(seed + 100)
+    # f32 values off the bf16 grid, ties kept on the 0.5 grid
+    y = y.float() if ties else y.float() + torch.from_numpy(
+        1e-3 * rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    return y, a, b, g.float()
+
+
+def _check_stem_bwd_f32(y, a, b, g):
+    """K3's f32 form against its plain version: dy within 1e-6 of the
+    largest |dy|, da/db within 1e-5 of the largest."""
+    dy, da, db = stem_pool.stem_pool_bwd(y, a, b, g)
+    rdy, rda, rdb = stem_pool.plain_bwd(y, a, b, g)
+    assert dy.dtype == torch.float32 and da.dtype == db.dtype == torch.float32
+    assert float((dy - rdy).abs().max()) <= 1e-6 * float(rdy.abs().max())
+    assert float((da - rda).abs().max()) <= 1e-5 * float(rda.abs().max())
+    assert float((db - rdb).abs().max()) <= 1e-5 * float(rdb.abs().max())
+    return da, db
+
+
+# the f32 forms walk pixels, not tiles: odd N, W not a multiple of 8 or
+# 16 windows, one window, every channel count, a Kinetics-sized batch
+@pytest.mark.parametrize("shape", [
+    (3, 6, 10, 64), (1, 2, 2, 64), (5, 18, 34, 64), (3, 8, 4, 8), (1, 34, 20, 16),
+    (1, 20, 18, 32), (1, 18, 18, 128), (9, 112, 112, 64),
+], ids=["c64", "n1-2x2", "ragged-c64", "c8", "c16", "c32", "c128", "kinetics-9"])
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+def test_stem_pool_f32_kernels_match_plain(dev, shape, ties):
+    y, a, b, g = _stem_inputs_f32(dev, shape, ties)
+    before = dict(_lib.LAUNCHES)
+    out = stem_pool.stem_pool_fwd(y, a, b)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, stem_pool.plain_fwd(y, a, b))
+    da, db = _check_stem_bwd_f32(y, a, b, g)
+    _, da2, db2 = stem_pool.stem_pool_bwd(y, a, b, g)
+    assert torch.equal(da, da2) and torch.equal(db, db2)  # the same bits again
+    launched = {k: _lib.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {**dict.fromkeys(before, 0), "stem_pool_fwd_f32": 1,
+                        "stem_pool_bwd_f32": 2}
+
+
+@pytest.mark.parametrize("c", [24, 256])
+def test_stem_pool_f32_rejects_channel_counts_it_cannot_take(dev, c):
+    y, a, b, g = _stem_inputs_f32(dev, (1, 4, 4, c), False)
+    with pytest.raises(ValueError, match="C in 8"):
+        stem_pool.stem_pool_fwd(y, a, b)
+    with pytest.raises(ValueError, match="C in 8"):
+        stem_pool.stem_pool_bwd(y, a, b, g)
+
+
+def test_stem_pool_f32_rejects_mixed_dtypes_and_misaligned_tensors(dev):
+    y, a, b, g = _stem_inputs_f32(dev, (1, 4, 4, 64), False)
+    with pytest.raises(ValueError, match="g: expected torch.float32"):
+        stem_pool.stem_pool_bwd(y, a, b, g.to(torch.bfloat16))
+    a_off = torch.zeros(65, device=dev)[1:]  # contiguous, 4 bytes past a float4
+    with pytest.raises(ValueError, match="a: expected a 16-byte aligned tensor"):
+        stem_pool.stem_pool_fwd(y, a_off, b)
+
+
+def test_scale_relu_pool_autograd_on_card_f32(dev):
+    """The f32 model's stem: the f32 kernels in both directions, the
+    gradients those of the plain versions."""
+    rng = np.random.default_rng(3)
+    y0 = torch.from_numpy(rng.standard_normal((3, 2, 10, 14, 64), dtype=np.float32)).to(dev)
+    a0 = torch.from_numpy((rng.standard_normal(64) + 1).astype(np.float32)).to(dev)
+    b0 = torch.from_numpy((0.1 * rng.standard_normal(64)).astype(np.float32)).to(dev)
+    y, a, b = (t.clone().requires_grad_() for t in (y0, a0, b0))
+    before = dict(_lib.LAUNCHES)
+    out = stem_pool.scale_relu_pool(y, a, b)
+    out.square().sum().backward()
+    assert _lib.LAUNCHES["stem_pool_fwd_f32"] == before["stem_pool_fwd_f32"] + 1
+    assert _lib.LAUNCHES["stem_pool_bwd_f32"] == before["stem_pool_bwd_f32"] + 1
+    assert _lib.LAUNCHES["stem_pool_fwd"] == before["stem_pool_fwd"]
+    g = 2 * stem_pool.plain_fwd(y0.reshape(6, 10, 14, 64), a0, b0)
+    rdy, rda, rdb = stem_pool.plain_bwd(y0.reshape(6, 10, 14, 64), a0, b0, g)
+    assert y.grad.dtype == torch.float32
+    torch.testing.assert_close(y.grad, rdy.reshape(y0.shape), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(a.grad, rda, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b.grad, rdb, rtol=1e-5, atol=1e-5)
+
+
 # K4 scores one (b, k) a warp, four a block: K = 1 (the positive), B = 1,
 # K not a multiple of the block's four (blocks that span query rows) or
 # past a warp's 32, D = 64 (half the lanes idle) and 256 (two float4 a
@@ -272,8 +356,8 @@ def test_nce_out_of_range_indices_inside_blocks(dev, bk):
 def test_wrappers_reject_bad_inputs(dev):
     y = torch.zeros((2, 8, 8, 64), device=dev)
     a = torch.ones(64, device=dev)
-    with pytest.raises(ValueError, match="bfloat16"):
-        stem_pool.stem_pool_fwd(y, a, a)  # f32 activation
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        stem_pool.stem_pool_fwd(y.double(), a, a)  # f64 activation
     yb = torch.zeros((2, 8, 8, 128), device=dev, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="contiguous"):
         stem_pool.stem_pool_fwd(yb, a, a)

@@ -21,6 +21,7 @@ import torch
 from avid_cma_tpu_torch.config import from_dict
 from avid_cma_tpu_torch.train.checkpoint import export_pth_tar
 from avid_cma_tpu_torch.train.loop import run_pretraining
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -189,15 +190,17 @@ def test_approximate_mining_raises_naming_it(tmp_path):
 
 
 def test_model_dtype_float32_on_the_card_raises():
+    """float32 on the card no longer raises (K2/K3 have f32 forms); what
+    still raises is bfloat16 on the CPU and an unknown spec."""
     from avid_cma_tpu_torch.train.builders import check_model_dtype
 
     with pytest.raises(NotImplementedError, match="model.dtype"):
-        check_model_dtype("float32", "cuda")
+        check_model_dtype("bfloat16", "cpu")
     with pytest.raises(ValueError, match="model.dtype"):
         check_model_dtype("float16", "cpu")
     for spec in (None, "auto", "float32"):
         check_model_dtype(spec, "cpu")
-    for spec in ("auto", "bfloat16"):
+    for spec in (None, "auto", "float32", "bfloat16"):
         check_model_dtype(spec, "cuda")
 
 

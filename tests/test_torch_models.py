@@ -12,6 +12,7 @@ values is ill-conditioned (errors up to ~5e-3 after normalization, on
 either side); four values make it well-conditioned."""
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,21 @@ from avid_cma_tpu_torch.train.checkpoint import flax_to_port_state
 TOL = 1e-4
 VIDEO = (4, 4, 32, 32, 3)
 AUDIO = (4, 24, 33, 1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads_per_worker():
+    """torch's CPU threads for the module's tests: under pytest-xdist,
+    this worker's share of the cores (each worker would otherwise start a
+    thread a core, and the workers' spinning threads starve each other);
+    in a serial run, as they were. Restored after the module; the port's
+    test modules import it (an autouse fixture applies where it is
+    imported)."""
+    before = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+    yield
+    torch.set_num_threads(before)
 
 
 def random_variables(model, seed, *inputs):

@@ -15,6 +15,7 @@ from jax.experimental import pallas as pl
 
 import avid_cma_tpu.ops.pallas.nce_gather as ng
 from avid_cma_tpu_torch.ops.kernels import nce_gather as port
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 T = 0.07
 

@@ -24,6 +24,7 @@ from avid_cma_tpu_torch.data.pipelines import (
     preprocess_batch,
 )
 from avid_cma_tpu_torch.ops import video_aug as port_aug
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
 

@@ -21,6 +21,7 @@ from avid_cma_tpu_torch.ops.kernels.r2p1d_pair import (
     plan_bf16,
     r2p1d_pair,
 )
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 
 def _inputs(b, t, h, c, seed=0):

@@ -22,6 +22,7 @@ from avid_cma_tpu.ops.pallas.spectrogram import log_spectrogram_pallas
 from avid_cma_tpu.ops.stft import log_spectrogram as jax_log_spectrogram
 from avid_cma_tpu_torch.ops import stft as port_stft
 from avid_cma_tpu_torch.ops.kernels.spectrogram import log_spectrogram_kernel, packed_basis
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 KW = dict(sample_rate=24000, n_fft=512, hop_size=0.01, duration=2.0)
 TOL = 1e-4

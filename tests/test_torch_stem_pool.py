@@ -17,6 +17,7 @@ from jax.experimental import pallas as pl
 
 import avid_cma_tpu.ops.pallas.stem_pool as sp
 from avid_cma_tpu_torch.ops.kernels import stem_pool as port
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 
 def _inputs(seed, shape, ties=False):

@@ -51,6 +51,7 @@ from avid_cma_tpu_torch.train.checkpoint import flax_to_port_state
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
 from avid_cma_tpu_torch.train.step import make_train_step
+from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 STEPS, B, N, K, D = 6, 4, 64, 16, 128
