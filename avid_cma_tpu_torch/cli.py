@@ -2,12 +2,13 @@
 argument parsing and avid_cma_tpu/cli.py): ``main_avid_torch.py``'s
 parser and body, and the parser the two eval CLIs share
 (``eval_action_recg_torch.py``, ``eval_action_recg_linear_torch.py``).
-Multi-process runs (``--multihost``) raise: they come with ROADMAP A6."""
+``--multihost`` makes the pretraining process one rank of a torchrun
+launch; on the eval CLIs it still raises (ROADMAP A6b)."""
 
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from avid_cma_tpu_torch import config as config_lib
 from avid_cma_tpu_torch.config import Config
@@ -15,7 +16,7 @@ from avid_cma_tpu_torch.config import Config
 
 def pretrain_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="AVID and AVID-CMA pretraining on one NVIDIA card (PyTorch/CUDA port)")
+        description="AVID and AVID-CMA pretraining on NVIDIA cards (PyTorch/CUDA port)")
     p.add_argument("cfg", help="YAML config (reference schema)")
     p.add_argument("--debug", action="store_true",
                    help="tiny batch, 1 worker, 2 epochs (reference --debug)")
@@ -27,12 +28,21 @@ def pretrain_arg_parser() -> argparse.ArgumentParser:
                    metavar="KEY=VALUE", help="dotted config overrides")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--multihost", action="store_true",
+                   help="one rank of a multi-process run launched by torchrun "
+                        "(--nproc-per-node=<gpus>): the process group comes up from "
+                        "torchrun's environment, NCCL on the cards, gloo with --device cpu; "
+                        "a failure raises")
     return p
 
 
-def pretrain_main(argv: Optional[List[str]] = None):
+def pretrain_main(argv: Optional[List[str]] = None,
+                  on_epoch: Optional[Callable[[Dict], None]] = None):
     """Parse ``argv``, load the config with the flags folded in as
-    overrides, and run the pretraining loop; returns the final state."""
+    overrides, and run the pretraining loop (``on_epoch`` as
+    ``run_pretraining``'s); returns the final state. With
+    ``--multihost`` the process group comes up first and is destroyed at
+    the end; without it, ``WORLD_SIZE`` > 1 raises naming the flag."""
     args = pretrain_arg_parser().parse_args(argv)
     overrides = list(args.overrides)
     if args.quiet:
@@ -41,9 +51,16 @@ def pretrain_main(argv: Optional[List[str]] = None):
         overrides.append(f"seed={args.seed}")
     cfg = config_lib.load(args.cfg, overrides=overrides)
 
+    from avid_cma_tpu_torch.parallel import mesh
     from avid_cma_tpu_torch.train.loop import run_pretraining
 
-    return run_pretraining(cfg, debug=args.debug, device=args.device)
+    if args.multihost:
+        mesh.initialize(args.device)
+    try:
+        return run_pretraining(cfg, debug=args.debug, device=args.device, on_epoch=on_epoch)
+    finally:
+        if args.multihost:
+            mesh.shutdown()
 
 
 def eval_arg_parser(description: str) -> argparse.ArgumentParser:
@@ -58,7 +75,7 @@ def eval_arg_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process evaluation (not ported yet: raises)")
+                   help="multi-process evaluation (not ported yet: raises, ROADMAP A6b)")
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="KEY=VALUE", help="dotted overrides of the eval config")
     p.add_argument("--device", default="cuda",
@@ -74,7 +91,8 @@ def parse_eval_args(p: argparse.ArgumentParser, argv: Optional[List[str]] = None
     args = p.parse_args(argv)
     if args.multihost:
         raise NotImplementedError(
-            "--multihost: multi-process evaluation is not ported yet (ROADMAP A6)")
+            "--multihost: multi-process evaluation is not ported yet (ROADMAP A6b, the "
+            "eval half of A6; pretraining runs multi-process)")
     for flag in ("test_only", "resume", "quiet"):
         if getattr(args, flag):
             args.overrides.append(f"{flag}=true")

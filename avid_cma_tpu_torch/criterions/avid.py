@@ -1,7 +1,10 @@
 """AVID criterion: cross/within-modal NCE against dual memory banks
-(counterpart of avid_cma_tpu/criterions/avid.py, single device).
+(counterpart of avid_cma_tpu/criterions/avid.py).
 
-Scores go through ``gather_scores`` (kernel K4 on the card). The bank
+Scores go through ``gather_scores`` (kernel K4 on the card), or, with
+row-sharded banks, ``parallel.sharding.scores_sharded`` (K4 on each
+rank's shard, the scores reduce-scattered). Over several ranks the bank
+update takes the all_gathered batch, as the JAX step does. The bank
 update is functional: ``avid_forward`` returns a new ``BankState`` and
 leaves the old banks untouched, because the score backward reads the
 old bank rows after the forward (the autograd op saves the bank, and an
@@ -16,9 +19,16 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from avid_cma_tpu_torch.criterions.nce import nce_loss, resolve_partition
+from avid_cma_tpu_torch.criterions.nce import l2_normalize, nce_loss, resolve_partition
 from avid_cma_tpu_torch.ops.kernels.nce_gather import gather_scores
 from avid_cma_tpu_torch.ops.sampling import draw_negatives_uniform
+from avid_cma_tpu_torch.parallel.mesh import World
+from avid_cma_tpu_torch.parallel.multihost import all_gather
+from avid_cma_tpu_torch.parallel.sharding import (
+    BankLayout,
+    ema_update_rows_sharded,
+    scores_sharded,
+)
 
 TEMPERATURE = 0.07
 
@@ -55,10 +65,6 @@ class AVIDConfig:
         return self.xModal_coeff / s, self.wModal_coeff / s
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True), min=eps)
-
-
 def init_bank_state(num_data: int, embedding_dim: int,
                     generator: torch.Generator) -> BankState:
     """randn banks, L2-normalized, on the generator's device."""
@@ -74,6 +80,14 @@ def init_bank_state(num_data: int, embedding_dim: int,
                      z=torch.tensor(-1.0, device=dev))
 
 
+def bank_scorer(temperature: float, layout: Optional[BankLayout]):
+    """sc(query, bank, idx) -> (B, K) scores / temperature: K4 on the full
+    bank, or ``scores_sharded`` (K4 on each shard) for a sharded layout."""
+    if layout is not None and layout.sharded:
+        return lambda query, bank, idx: scores_sharded(bank, idx, query, layout, temperature)
+    return lambda query, bank, idx: gather_scores(bank, idx, query, temperature)
+
+
 def _last_occurrence(y: torch.Tensor) -> torch.Tensor:
     """For each position i, the last position j with y[j] == y[i]."""
     pos = torch.arange(y.shape[0], device=y.device)
@@ -83,17 +97,27 @@ def _last_occurrence(y: torch.Tensor) -> torch.Tensor:
 
 def update_banks(state: BankState, video_emb: torch.Tensor,
                  audio_emb: torch.Tensor, y: torch.Tensor,
-                 momentum: Tuple[float, float]) -> BankState:
+                 momentum: Tuple[float, float],
+                 layout: Optional[BankLayout] = None) -> BankState:
     """EMA + renorm of the rows ``y`` into NEW bank tensors (the old ones
     are left as they are), in a state of ``state``'s type (a CMA state
-    keeps its positive set). Duplicate indices resolve last-write-wins: every
-    duplicate writes the value of its last occurrence, so the order in
-    which the scatter lands them does not matter (CUDA's ``index_put_``
-    fixes no order among duplicates)."""
+    keeps its positive set). Over more than one rank the embeddings and
+    ``y`` are all_gathered first, rank-major, so every rank applies the
+    same update; with a sharded ``layout`` each rank writes only the rows
+    it owns. Duplicate indices resolve last-write-wins over the gathered
+    batch: every duplicate writes the value of its last occurrence, so
+    the order in which the scatter lands them does not matter (CUDA's
+    ``index_put_`` fixes no order among duplicates)."""
+    world = layout.world if layout is not None else World()
+    video_emb = all_gather(video_emb.detach(), world)
+    audio_emb = all_gather(audio_emb.detach(), world)
+    y = all_gather(y, world)
     last = _last_occurrence(y)
 
     def ema(mem, emb, mom):
-        new = l2_normalize(mem[y] * mom + emb.detach() * (1.0 - mom))
+        if layout is not None and layout.sharded:
+            return ema_update_rows_sharded(mem, y, emb, mom, layout, last)
+        new = l2_normalize(mem[y] * mom + emb * (1.0 - mom))
         return mem.clone().index_put_((y,), new[last])
 
     return dataclasses.replace(
@@ -111,10 +135,14 @@ def avid_forward(
     cfg: AVIDConfig,
     neg_idx: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    layout: Optional[BankLayout] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], BankState]:
     """One criterion step: (total_loss, logs, new_state). Differentiable in
     the embeddings. Negatives are ``neg_idx`` (B, K) when given, else drawn
-    from ``generator``."""
+    from ``generator``. ``layout`` (default: one process, replicated)
+    says how the banks are held: row-sharded banks are scored through
+    ``scores_sharded``; over several ranks Z freezes from the batch mean
+    averaged over the ranks, and the banks take the gathered batch."""
     xmodal, wmodal = cfg.xModal_coeff > 0, cfg.wModal_coeff > 0
     # the loss is always f32 (bf16 unit embeddings collapse instance
     # discrimination; see models/av_wrapper.py Head)
@@ -125,8 +153,7 @@ def avid_forward(
     if neg_idx is None:
         neg_idx = draw_negatives_uniform(y, cfg.num_negatives, cfg.num_data, generator)
 
-    def sc(query, bank, idx):
-        return gather_scores(bank, idx, query, cfg.temperature)
+    sc = bank_scorer(cfg.temperature, layout)
 
     y1 = y[:, None]
     scores: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -139,7 +166,8 @@ def avid_forward(
 
     # Z freezes from the first head's negatives on the first step
     first_head = "v2a" if xmodal else "v2v"
-    z = resolve_partition(state.z, torch.exp(scores[first_head][1]))
+    world = layout.world if layout is not None else World()
+    z = resolve_partition(state.z, torch.exp(scores[first_head][1]), world)
 
     logs: Dict[str, torch.Tensor] = {}
     xmodal_loss = torch.zeros((), device=video_emb.device)
@@ -157,5 +185,5 @@ def avid_forward(
     xc, wc = cfg.coeffs
     total = xmodal_loss * xc + wmodal_loss * wc
     new_state = update_banks(
-        dataclasses.replace(state, z=z), video_emb, audio_emb, y, cfg.momentum)
+        dataclasses.replace(state, z=z), video_emb, audio_emb, y, cfg.momentum, layout)
     return total, logs, new_state

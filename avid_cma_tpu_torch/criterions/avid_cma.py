@@ -1,6 +1,6 @@
 """AVID-CMA criterion: instance discrimination plus positive-set
 discrimination against the dual memory banks (counterpart of
-avid_cma_tpu/criterions/avid_cma.py, single device, replicated banks).
+avid_cma_tpu/criterions/avid_cma.py).
 
 Per step (reference: criterions/avid_cma.py:150-194), the active heads:
 
@@ -12,7 +12,8 @@ Per step (reference: criterions/avid_cma.py:150-194), the active heads:
 - pos-v2v / pos-a2a (``wModalPosCoeff``): the mined positives within a
   modality against the first ``num_negatives_within`` negatives.
 
-Every score goes through ``gather_scores`` (kernel K4 on the card): the
+Every score goes through ``gather_scores`` (kernel K4 on the card; with
+row-sharded banks ``scores_sharded``, K4 on each shard): the
 self row is ``y[:, None]``, the positives ``positive_set[y]`` (B, pos_k),
 the negatives (B, K), the within-modal negatives a contiguous copy of
 their first columns (K4 takes contiguous indices only). Negatives are
@@ -40,12 +41,13 @@ import torch
 from avid_cma_tpu_torch.criterions.avid import (
     TEMPERATURE,
     BankState,
-    l2_normalize,
+    bank_scorer,
     update_banks,
 )
-from avid_cma_tpu_torch.criterions.nce import nce_loss, resolve_partition
-from avid_cma_tpu_torch.ops.kernels.nce_gather import gather_scores
+from avid_cma_tpu_torch.criterions.nce import l2_normalize, nce_loss, resolve_partition
 from avid_cma_tpu_torch.ops.sampling import draw_negatives_avoid_sorted
+from avid_cma_tpu_torch.parallel.mesh import World
+from avid_cma_tpu_torch.parallel.sharding import BankLayout, gather_values_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,16 +125,22 @@ def cma_forward(
     cfg: AVIDCMAConfig,
     neg_idx: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    layout: Optional[BankLayout] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], CMAState]:
     """One AVID-CMA criterion step: (total_loss, logs, new_state).
     Differentiable in the embeddings. Negatives are ``neg_idx`` (B, K)
-    when given, else drawn from ``generator`` past the positives."""
+    when given, else drawn from ``generator`` past the positives.
+    ``layout`` as in ``avid_forward``; with sharded banks the positive
+    set is sharded too and its rows come through
+    ``gather_values_sharded``."""
     video_emb = l2_normalize(video_emb)
     audio_emb = l2_normalize(audio_emb)
     bank_v, bank_a = state.view1_mem, state.view2_mem
-    T = cfg.temperature
+    sharded = layout is not None and layout.sharded
 
-    pos_idx = state.positive_set[y]  # (B, pos_k), rows sorted
+    # (B, pos_k), rows sorted
+    pos_idx = (gather_values_sharded(state.positive_set, y, layout) if sharded
+               else state.positive_set[y])
     if neg_idx is None:
         neg_idx = draw_negatives_avoid_sorted(pos_idx, cfg.num_negatives, cfg.num_data,
                                               generator)
@@ -140,8 +148,7 @@ def cma_forward(
     neg_w = neg_idx[:, :kw].contiguous() if kw is not None else neg_idx
     y1 = y[:, None]
 
-    def sc(query, bank, idx):
-        return gather_scores(bank, idx, query, T)
+    sc = bank_scorer(cfg.temperature, layout)
 
     scores: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
     if cfg.xModalInstCoeff > 0:
@@ -159,7 +166,8 @@ def cma_forward(
 
     # Z freezes from the first active head's negatives
     first_head = next(iter(scores))
-    z = resolve_partition(state.z, torch.exp(scores[first_head][1]))
+    world = layout.world if layout is not None else World()
+    z = resolve_partition(state.z, torch.exp(scores[first_head][1]), world)
 
     losses = [torch.zeros((), device=video_emb.device) for _ in range(4)]
     logs: Dict[str, torch.Tensor] = {}
@@ -172,5 +180,5 @@ def cma_forward(
         logs[f"Loss/{name}"] = l.detach()
 
     new_state = update_banks(dataclasses.replace(state, z=z), video_emb, audio_emb, y,
-                             cfg.momentum)
+                             cfg.momentum, layout)
     return total, logs, new_state

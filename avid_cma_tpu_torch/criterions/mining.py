@@ -1,5 +1,5 @@
 """CMA positive-set mining: a blocked agreement top-k sweep over the banks
-(counterpart of avid_cma_tpu/criterions/mining.py, single device).
+(counterpart of avid_cma_tpu/criterions/mining.py).
 
 Per tile of queries (bank rows), ``sim_v = q_v @ bank_v.T`` and
 ``sim_a = q_a @ bank_a.T`` in true f32 (TF32 off, as the JAX package's
@@ -10,9 +10,19 @@ exact top-k, then each row sorted ascending, which the rank-shift
 negative draw requires. A plain matrix product and top-k, which the JAX
 package also computes outside any Pallas kernel.
 
+Over several ranks (the JAX package's mesh sweeps): with replicated
+banks ``mine_positives_mesh`` splits the queries over the ranks, each
+sweeping its ceil(N / world) rows against the full banks, and
+all_gathers the sets; with row-sharded banks ``mine_positives_sharded``
+all_gathers the banks for the sweep only, each rank sweeping the rows it
+owns into its shard of the positive set. The gathered banks hold the N
+real rows only, so the zero rows that pad the last shard are never
+candidates. Both are exact: each query's set is what ``sweep`` gives it
+on one device.
+
 Not ported: ``exact=False`` (``lax.approx_max_k``, the AudioSet recipe's
-``sampling_args.exact: false``) has no torch counterpart and raises; the
-mesh and row-sharded sweeps wait for distributed training (ROADMAP A6).
+``sampling_args.exact: false``) has no torch counterpart and raises
+(ROADMAP A8.5).
 """
 
 from __future__ import annotations
@@ -21,6 +31,10 @@ import contextlib
 from typing import Iterator, Optional
 
 import torch
+
+from avid_cma_tpu_torch.parallel.mesh import World
+from avid_cma_tpu_torch.parallel.multihost import all_gather
+from avid_cma_tpu_torch.parallel.sharding import BankLayout, unshard_rows
 
 AGREEMENT_TYPES = ("consensus", "union", "video", "audio")
 # the transient of one tile on the card: its (tile, N) f32 similarity and
@@ -104,6 +118,63 @@ def mine_positives(bank_v: torch.Tensor, bank_a: torch.Tensor, pos_k: int,
     n = bank_v.shape[0]
     return sweep(bank_v, bank_a, torch.arange(n, device=bank_v.device), pos_k, kind,
                  tile, exact)
+
+
+def _sweep_rows(bank_v: torch.Tensor, bank_a: torch.Tensor, lo: int, hi: int, rows: int,
+                pos_k: int, kind: str, tile: Optional[int], exact: bool) -> torch.Tensor:
+    """The sets of queries [lo, hi) in a (rows, pos_k) block, zero past them."""
+    out = torch.zeros((rows, pos_k), dtype=torch.int64, device=bank_v.device)
+    if hi > lo:
+        out[:hi - lo] = sweep(bank_v, bank_a, torch.arange(lo, hi, device=bank_v.device),
+                              pos_k, kind, tile, exact)
+    return out
+
+
+def mine_block_mesh(bank_v: torch.Tensor, bank_a: torch.Tensor, pos_k: int, rank: int,
+                    size: int, kind: str = "consensus", tile: Optional[int] = None,
+                    exact: bool = True) -> torch.Tensor:
+    """Rank ``rank``'s part of ``mine_positives_mesh``: the sets of its
+    ceil(N / size) queries from the full (N, D) banks, zero past N."""
+    n = bank_v.shape[0]
+    q_local = -(-n // size)
+    lo = min(rank * q_local, n)
+    return _sweep_rows(bank_v, bank_a, lo, min(lo + q_local, n), q_local, pos_k, kind, tile,
+                       exact)
+
+
+def mine_positives_mesh(bank_v: torch.Tensor, bank_a: torch.Tensor, pos_k: int,
+                        world: World, kind: str = "consensus", tile: Optional[int] = None,
+                        exact: bool = True) -> torch.Tensor:
+    """The (N, pos_k) positive set of replicated (N, D) banks, the queries
+    split over the ranks of ``world`` (each sweeps ceil(N / world) of
+    them; every rank gets the whole set)."""
+    part = mine_block_mesh(bank_v, bank_a, pos_k, world.rank, world.size, kind, tile, exact)
+    return all_gather(part, world)[:bank_v.shape[0]]
+
+
+def mine_block_sharded(bank_v: torch.Tensor, bank_a: torch.Tensor, pos_k: int, rank: int,
+                       size: int, kind: str = "consensus", tile: Optional[int] = None,
+                       exact: bool = True) -> torch.Tensor:
+    """Rank ``rank``'s shard (n_local + 1, pos_k) of the positive set,
+    from the full (N, D) banks: the sets of the rows it owns, its padded
+    rows and the sentinel row 0."""
+    n = bank_v.shape[0]
+    n_local = -(-n // size)
+    lo = min(rank * n_local, n)
+    return _sweep_rows(bank_v, bank_a, lo, min(lo + n_local, n), n_local + 1, pos_k, kind,
+                       tile, exact)
+
+
+def mine_positives_sharded(shard_v: torch.Tensor, shard_a: torch.Tensor, layout: BankLayout,
+                           pos_k: int, kind: str = "consensus", tile: Optional[int] = None,
+                           exact: bool = True) -> torch.Tensor:
+    """This rank's shard (n_local + 1, pos_k) of the positive set of
+    row-sharded banks (``parallel.sharding``'s layout): the banks are
+    all_gathered (their N real rows) for the sweep only, and the rank
+    sweeps the rows it owns."""
+    world = layout.world
+    return mine_block_sharded(unshard_rows(shard_v, layout), unshard_rows(shard_a, layout),
+                              pos_k, world.rank, world.size, kind, tile, exact)
 
 
 def boundary_gap(bank_v: torch.Tensor, bank_a: torch.Tensor, q_index: torch.Tensor,

@@ -57,6 +57,14 @@ def scores(bank: torch.Tensor, idx: torch.Tensor, query: torch.Tensor,
     return out
 
 
+def scores_vjp(g: torch.Tensor, rows: torch.Tensor, temperature: float,
+               q_dtype: torch.dtype) -> torch.Tensor:
+    """dq of the scores: g (B, K) against the scored rows (B, K, D), in
+    the query's dtype (the replicated and the row-sharded scores share it,
+    so both give the same bits from the same rows)."""
+    return (torch.einsum("bk,bkd->bd", g, rows) / temperature).to(q_dtype)
+
+
 class GatherScores(torch.autograd.Function):
     @staticmethod
     def forward(ctx, bank, idx, query, temperature):
@@ -69,8 +77,7 @@ class GatherScores(torch.autograd.Function):
     def backward(ctx, g):
         bank, idx = ctx.saved_tensors
         rows = bank.index_select(0, idx.reshape(-1)).reshape(*idx.shape, -1)
-        dq = torch.einsum("bk,bkd->bd", g, rows) / ctx.temperature
-        return None, None, dq.to(ctx.q_dtype), None
+        return None, None, scores_vjp(g, rows, ctx.temperature, ctx.q_dtype), None
 
 
 def gather_scores(bank: torch.Tensor, idx: torch.Tensor, query: torch.Tensor,

@@ -29,6 +29,7 @@ from avid_cma_tpu_torch.data.pipelines import PreprocessConfig
 from avid_cma_tpu_torch.registry import DATASETS
 from avid_cma_tpu_torch.device import compute_dtype, prepare_device
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper
+from avid_cma_tpu_torch.parallel.sharding import BankLayout
 from avid_cma_tpu_torch.train.optim import build_optimizer, multistep_scheduler
 from avid_cma_tpu_torch.train.state import TrainState
 from avid_cma_tpu_torch.train.step import (
@@ -211,8 +212,9 @@ def build_preprocess_config(db_cfg: Config, model_dtype=None) -> PreprocessConfi
 
 
 def pretrain_config(cfg: Config, num_data: Optional[int] = None) -> PretrainConfig:
-    """The ``PretrainConfig`` of a loaded pretraining YAML: one card takes
-    ``dataset.batch_size`` clips a step. ``num_data`` overrides
+    """The ``PretrainConfig`` of a loaded pretraining YAML, for one card
+    taking ``dataset.batch_size`` clips a step (the loop splits the
+    global batch over its ranks itself). ``num_data`` overrides
     ``loss.args.num_data`` (the loop passes the dataset's size). Raises
     for what the port does not build: another ``model.arch`` than
     av_wrapper, another loss than AVID and AVID_CMA (or AVID-CMA)."""
@@ -349,7 +351,8 @@ def build_dataloader(dataset, db_cfg: Config, split_cfg: Config, num_workers: in
     return loader
 
 
-def _build_state(cfg: PretrainConfig, device: str | torch.device
+def _build_state(cfg: PretrainConfig, device: str | torch.device,
+                 layout: Optional[BankLayout] = None
                  ) -> Tuple[TrainState, Union[AVIDConfig, AVIDCMAConfig]]:
     dev = prepare_device(device)
     model = av_wrapper(
@@ -361,18 +364,21 @@ def _build_state(cfg: PretrainConfig, device: str | torch.device
                                 weight_decay=cfg.weight_decay)
     scheduler = multistep_scheduler(optimizer, cfg.milestones, cfg.gamma)
     criterion = cfg.criterion(model.out_dim)
-    return init_train_state(model, optimizer, scheduler, criterion, cfg.seed), criterion
+    return (init_train_state(model, optimizer, scheduler, criterion, cfg.seed, layout),
+            criterion)
 
 
-def build_pretrain(cfg: PretrainConfig, device: str | torch.device = "cuda"
-                   ) -> Tuple[TrainState, Callable]:
+def build_pretrain(cfg: PretrainConfig, device: str | torch.device = "cuda",
+                   layout: Optional[BankLayout] = None) -> Tuple[TrainState, Callable]:
     """(state, fused_step) for AVID or AVID-CMA pretraining on ``device``
     (for AVID-CMA the state's positive set is zeroed: mine it with
     ``criterions.mining.mine_positives`` before the first step); call
     ``fused_step(state, raw_batch, step_i)`` with raw batches
     {frames: uint8 (B,T,H,W,3), audio: f32 (B,L), index: (B,)} on the
-    device. Raises when ``device`` is CUDA and no card is present."""
-    state, criterion = _build_state(cfg, device)
+    device. ``layout`` (``parallel.sharding.BankLayout``; default one
+    process, replicated) places the banks over the ranks. Raises when
+    ``device`` is CUDA and no card is present."""
+    state, criterion = _build_state(cfg, device, layout)
     return state, make_fused_train_step(criterion, cfg.preprocess(), cfg.seed)
 
 

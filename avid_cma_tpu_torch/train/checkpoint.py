@@ -9,7 +9,9 @@
   state, the loader's position), each written to a temporary file and moved into place, so a
   crash leaves the previous checkpoint whole. The ``max_to_keep`` newest
   are kept, and milestone copies (the reference's
-  ``checkpoint-ep{N}.pth.tar``) always.
+  ``checkpoint-ep{N}.pth.tar``) always. The banks are saved whole (N
+  rows) whatever the run's layout; over several ranks rank 0 writes, and
+  on restore each rank keeps its own rows.
 - ``export_pth_tar`` and the ``import_*_pth_tar`` functions: the
   reference's ``.pth.tar`` layout (utils/main_utils.py:271-287): model
   keys prefixed ``module.``, the Adam moments indexed in the reference's
@@ -34,6 +36,9 @@ import torch
 
 from avid_cma_tpu_torch.criterions.avid import BankState
 from avid_cma_tpu_torch.criterions.avid_cma import CMAState, cma_state_from_bank
+from avid_cma_tpu_torch.parallel.mesh import World
+from avid_cma_tpu_torch.parallel.multihost import barrier
+from avid_cma_tpu_torch.parallel.sharding import shard_bank, unshard_bank
 from avid_cma_tpu_torch.train.state import TrainState
 
 _BN_SUFFIX = {"scale": "weight", "bias": "bias", "mean": "running_mean",
@@ -289,13 +294,15 @@ def _atomic_save(obj: Any, path: str) -> None:
 
 def state_payload(state: TrainState, loader_position: Dict[str, int]) -> Dict[str, Any]:
     """Everything a resume needs, as one ``torch.save``-able dict (an
-    eval run's state has no banks)."""
+    eval run's state has no banks). The banks (and the positive set) are
+    the full N rows whatever the layout: under a sharded one this is a
+    collective, which every rank must call."""
     bank = None
     if state.bank is not None:
-        bank = {"view1_mem": state.bank.view1_mem, "view2_mem": state.bank.view2_mem,
-                "z": state.bank.z}
-        if isinstance(state.bank, CMAState):
-            bank["positive_set"] = state.bank.positive_set
+        full = unshard_bank(state.bank, state.layout) if state.layout else state.bank
+        bank = {"view1_mem": full.view1_mem, "view2_mem": full.view2_mem, "z": full.z}
+        if isinstance(full, CMAState):
+            bank["positive_set"] = full.positive_set
     return {
         "step": int(state.step), "epoch": int(state.epoch),
         "model": state.model.state_dict(),
@@ -310,7 +317,8 @@ def state_payload(state: TrainState, loader_position: Dict[str, int]) -> Dict[st
 def load_payload(state: TrainState, payload: Dict[str, Any]) -> Dict[str, int]:
     """Restore ``state`` in place from ``state_payload``'s dict; returns
     the loader's position. An AVID-CMA state needs the payload's
-    positive set."""
+    positive set. Each rank keeps its own rows of the full banks, so a
+    checkpoint resumes at any world size, sharded or replicated."""
     bank = payload["bank"]
     if (state.bank is None) != (bank is None):
         raise KeyError("the checkpoint's banks do not match the state's: "
@@ -327,6 +335,11 @@ def load_payload(state: TrainState, payload: Dict[str, Any]) -> Dict[str, int]:
                              view2_mem=bank["view2_mem"].to(dev), z=bank["z"].to(dev))
         if isinstance(state.bank, CMAState):
             restored = cma_state_from_bank(restored, bank["positive_set"])
+        if state.layout is not None:
+            if restored.view1_mem.shape[0] != state.layout.n:
+                raise ValueError(f"the checkpoint's banks have {restored.view1_mem.shape[0]} "
+                                 f"rows; this run's have {state.layout.n}")
+            restored = shard_bank(restored, state.layout)
         state.bank = restored
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
@@ -346,11 +359,14 @@ class CheckpointManager:
     synchronous and atomic. Milestone steps (the reference's
     permanently kept ``checkpoint-ep{N}.pth.tar`` copies,
     main-avid.py:126-127) are exempt from the ``max_to_keep`` cleanup and
-    listed in ``milestones.txt``, so they survive restarts."""
+    listed in ``milestones.txt``, so they survive restarts. Over several
+    ranks (``world``) every rank calls ``save``, rank 0 alone writes
+    (avid_cma_tpu/train/checkpoint.py:540-570), and all wait for it."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, world: World = World()):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.world = world
         os.makedirs(self.directory, exist_ok=True)
         self._milestones_path = os.path.join(self.directory, "milestones.txt")
         self._milestones = set()
@@ -372,8 +388,10 @@ class CheckpointManager:
              milestone: bool = False) -> bool:
         """Write the checkpoint of ``step`` unless it exists (a
         mid-epoch save landing on the epoch's end); returns whether it
-        wrote."""
-        if milestone and int(step) not in self._milestones:
+        wrote. Every rank checks before any writes, and none returns
+        before rank 0 has written, so all ranks take the same branch."""
+        main = self.world.is_main
+        if main and milestone and int(step) not in self._milestones:
             self._milestones.add(int(step))
             tmp = self._milestones_path + ".tmp"
             with open(tmp, "w") as f:
@@ -381,10 +399,13 @@ class CheckpointManager:
             os.replace(tmp, self._milestones_path)
         if os.path.exists(self.path(step)):
             return False
-        _atomic_save(state_payload(state, loader_position), self.path(step))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            if old not in self._milestones:
-                os.remove(self.path(old))
+        payload = state_payload(state, loader_position)
+        if main:
+            _atomic_save(payload, self.path(step))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                if old not in self._milestones:
+                    os.remove(self.path(old))
+        barrier(self.world)
         return True
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> Dict[str, int]:

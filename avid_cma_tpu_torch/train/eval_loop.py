@@ -23,7 +23,7 @@ Every random draw of a train step is seeded by the step: the
 preprocessing from (123 for the finetune, 7 for the probe, step), the
 dropout masks from (the eval config's seed, step), so a resumed run
 repeats the straight run bit for bit. The multi-process lockstep of the
-JAX loop (``sync_any``, ``sync_counts``) is ROADMAP A6.
+JAX loop (``sync_any``, ``sync_counts``) is ROADMAP A6b.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Pretraining orchestration: the epoch/step loop (counterpart of
-avid_cma_tpu/train/loop.py, one device).
+avid_cma_tpu/train/loop.py).
 
 Capability reference: main-avid.py:84-201 (main_worker + run_phase):
 build everything from the YAML, restore, loop epochs calling the fused
@@ -15,6 +15,16 @@ resumes, and re-mined at the start of each epoch where
 The host loop only feeds raw batches (host decode -> ``device_prefetch``)
 and drains metrics: the per-step losses stay on the device and are
 fetched once per ``print_freq`` window.
+
+Over several processes (a process group up, ``parallel.mesh``; one
+process per GPU under torchrun) each rank loads its shard of every
+global batch (``num_shards``, ``shard_index``), the step averages the
+gradients, the BN running stats and the metrics, and
+``loss.bank_sharding: sharded`` keeps the banks and the positive set
+row-sharded (``parallel.sharding``): each rank initializes, warm-starts
+and restores its own rows of the full banks, and mines its own rows of
+the positive set. Rank 0 alone writes the log, TensorBoard, the config
+and the checkpoints (which hold the full banks).
 """
 
 from __future__ import annotations
@@ -34,9 +44,14 @@ from avid_cma_tpu_torch.criterions.avid_cma import (
     cma_state_from_bank,
     should_resample,
 )
-from avid_cma_tpu_torch.criterions.mining import mine_positives
+from avid_cma_tpu_torch.criterions.mining import (
+    mine_positives,
+    mine_positives_mesh,
+    mine_positives_sharded,
+)
 from avid_cma_tpu_torch.data.prefetch import device_prefetch
-from avid_cma_tpu_torch.device import resolve_device
+from avid_cma_tpu_torch.parallel.mesh import current_world, process_batch_slice
+from avid_cma_tpu_torch.parallel.sharding import BankLayout, parse_bank_sharding, shard_bank
 from avid_cma_tpu_torch.train import builders
 from avid_cma_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -58,22 +73,15 @@ from avid_cma_tpu_torch.utils.profiling import StepWindowTracer
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise for what the port cannot run yet, naming each such setting
-    and its ROADMAP item: a sharded bank or more than one process (A6),
-    approximate CMA mining, ``sampling_args.exact: false`` (A8)."""
-    gaps = []
-    if str(cfg.loss.get("bank_sharding", "replicated")) != "replicated":
-        gaps.append("loss.bank_sharding: sharded banks are not ported yet (ROADMAP A6); "
-                    "set loss.bank_sharding=replicated")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        gaps.append("multi-process training (WORLD_SIZE > 1) is not ported yet (ROADMAP A6)")
+    """Raise for what the port cannot run yet, naming the setting and its
+    ROADMAP item: approximate CMA mining, ``sampling_args.exact: false``
+    (A8.5). An unknown ``loss.bank_sharding`` raises too."""
+    parse_bank_sharding(cfg.loss.get("bank_sharding"))
     sampling = cfg.loss.get("args", {}).get("sampling_args", {}) or {}
     if not sampling.get("exact", True):
-        gaps.append("loss.args.sampling_args.exact: false (approximate top-k mining, "
-                    "lax.approx_max_k) has no torch counterpart (ROADMAP A8); "
-                    "set exact: true")
-    if gaps:
-        raise NotImplementedError("; ".join(gaps))
+        raise NotImplementedError(
+            "loss.args.sampling_args.exact: false (approximate top-k mining, "
+            "lax.approx_max_k) has no torch counterpart (ROADMAP A8.5); set exact: true")
 
 
 def _warm_start_bank(path: str, num_data: int, dev: torch.device, logger: Logger
@@ -99,11 +107,23 @@ def _warm_start_bank(path: str, num_data: int, dev: torch.device, logger: Logger
 
 
 def _mine(state: TrainState, crit: AVIDCMAConfig, dev: torch.device) -> float:
-    """Mine the positive set of the state's banks into the state; the
+    """Mine the positive set of the state's banks into the state, routed
+    by the layout as the JAX ``_mine`` (avid_cma_tpu/train/loop.py:481-498):
+    row-sharded banks through the row-sharded sweep (at one rank the same
+    sweep as ``mine_positives``), replicated banks over several ranks
+    through the query-sharded one, else ``mine_positives``. Returns the
     sweep's seconds (the card synchronized)."""
     t0 = time.perf_counter()
-    pos = mine_positives(state.bank.view1_mem, state.bank.view2_mem, crit.pos_k,
-                         crit.sampling_type, exact=crit.mining_exact)
+    bank, layout = state.bank, state.layout
+    args = dict(kind=crit.sampling_type, exact=crit.mining_exact)
+    if layout.sharded:
+        pos = mine_positives_sharded(bank.view1_mem, bank.view2_mem, layout, crit.pos_k,
+                                     **args)
+    elif layout.world.size > 1:
+        pos = mine_positives_mesh(bank.view1_mem, bank.view2_mem, crit.pos_k, layout.world,
+                                  **args)
+    else:
+        pos = mine_positives(bank.view1_mem, bank.view2_mem, crit.pos_k, **args)
     _sync(dev)
     state.bank = cma_state_from_bank(state.bank, pos)
     return time.perf_counter() - t0
@@ -118,45 +138,54 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
                     on_epoch: Optional[Callable[[Dict], None]] = None) -> TrainState:
     """``python main_avid_torch.py <cfg.yaml>`` body (reference:
     main-avid.py). Runs on ``device`` (raises when it names CUDA and no
-    card is present). ``on_epoch``, when given, gets one dict a train
-    epoch: epoch, start_step, steps, clips, loss (the epoch's mean train
-    loss), train_s (host clock, the card synchronized at the end),
+    card is present), as one rank of the process group when one is up
+    (on its ``cuda:LOCAL_RANK``). ``steps_per_epoch`` (top-level config
+    key, optional) trains at most that many batches an epoch: a smoke
+    run of a full-size corpus. ``on_epoch``, when given, gets one dict a
+    train epoch: epoch, start_step, steps, clips (this rank's), loss
+    (the epoch's mean train loss over the ranks), step_losses (each
+    step's), train_s (host clock, the card synchronized at the end),
     loader_wait_s (time the loop waited for the next batch), test_loss,
     mine_s (seconds of the AVID-CMA mining before the epoch's first batch:
     the first mining of a run counts for the first epoch it trains; None
     when the epoch mined nothing)."""
     check_ported(cfg)
-    dev = resolve_device(device)
+    world = current_world(device)
+    dev = world.device
     builders.check_model_dtype(cfg.model.get("dtype"), dev)
     seed = int(cfg.get("seed", 0))
     model_dir = os.path.join(cfg.model["model_dir"], cfg.model["name"])
-    logger = Logger(path=os.path.join(model_dir, "train.log"), quiet=bool(cfg.get("quiet")))
-    tb = TensorBoardWriter(os.path.join(model_dir, "tb"), enabled=bool(cfg.get("log2tb", False)))
+    logger = Logger(path=os.path.join(model_dir, "train.log"), quiet=bool(cfg.get("quiet")),
+                    rank=world.rank)
+    tb = TensorBoardWriter(os.path.join(model_dir, "tb"), enabled=bool(cfg.get("log2tb", False)),
+                           rank=world.rank)
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    logger.add_line(f"device={dev} ({card}) seed={seed}")
+    logger.add_line(f"device={dev} ({card}) rank {world.rank} of {world.size} seed={seed}")
     logger.log_config(cfg)
     os.makedirs(model_dir, exist_ok=True)
-    # the resolved config, read back by the export tooling
-    config_lib.dump(cfg, os.path.join(model_dir, "config.yaml"))
+    if world.is_main:  # the resolved config, read back by the export tooling
+        config_lib.dump(cfg, os.path.join(model_dir, "config.yaml"))
 
     db_cfg = cfg.dataset
     if debug:
         db_cfg = Config(dict(db_cfg))
-        db_cfg["batch_size"] = max(2, 4)  # the JAX loop's max(2 * devices, 4)
+        db_cfg["batch_size"] = max(2 * world.size, 4)  # the JAX loop's max(2 * devices, 4)
+    process_batch_slice(int(db_cfg["batch_size"]), world)
+    shards = dict(num_shards=world.size, shard_index=world.rank)
 
     # --- data -------------------------------------------------------------
     train_ds = builders.build_dataset(db_cfg, db_cfg.train, mode="clip")
     num_workers = 1 if debug else int(cfg.get("num_workers", 4))
     loader_kind = str(cfg.get("loader", "threaded"))
-    loader = builders.build_dataloader(train_ds, db_cfg, db_cfg.train,
-                                       num_workers=num_workers, seed=seed, kind=loader_kind)
+    loader = builders.build_dataloader(train_ds, db_cfg, db_cfg.train, num_workers=num_workers,
+                                       seed=seed, kind=loader_kind, **shards)
     test_loader = None
     if not cfg.get("no_test", False) and "test" in db_cfg:
         try:
             test_ds = builders.build_dataset(db_cfg, db_cfg.test, mode="clip")
             test_loader = builders.build_dataloader(
                 test_ds, db_cfg, db_cfg.test, num_workers=num_workers, seed=seed,
-                kind=loader_kind)
+                kind=loader_kind, **shards)
         except (FileNotFoundError, ValueError) as e:
             # missing split files OR a split too small for one batch: the
             # test phase is optional either way
@@ -170,13 +199,19 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
         logger.add_line(f"note: loss.num_data={num_data} != dataset size "
                         f"{train_ds.num_samples}; using dataset size")
     pcfg = builders.pretrain_config(cfg, num_data=train_ds.num_samples)
-    state, train_step = builders.build_pretrain(pcfg, dev)
+    layout = BankLayout(n=pcfg.num_data, world=world,
+                        sharded=parse_bank_sharding(cfg.loss.get("bank_sharding")))
+    state, train_step = builders.build_pretrain(pcfg, dev, layout)
+    if layout.sharded:
+        logger.add_line(f"banks row-sharded: {layout.n_local} of {layout.n} rows a rank")
     logger.add_line(parameter_description(state.model))
     epochs = 2 if debug else int(cfg.optimizer["num_epochs"])
     milestones = set(int(m) for m in cfg.optimizer["lr"].get("milestones", []))
-    tracer = StepWindowTracer(cfg.get("profile_steps"), os.path.join(model_dir, "profile"), dev)
+    # rank 0 traces: the ranks would write one file
+    tracer = StepWindowTracer(cfg.get("profile_steps") if world.is_main else None,
+                              os.path.join(model_dir, "profile"), dev)
 
-    ckpt = CheckpointManager(os.path.join(model_dir, "checkpoints"))
+    ckpt = CheckpointManager(os.path.join(model_dir, "checkpoints"), world=world)
     resuming = bool(cfg.get("resume")) and ckpt.latest_step() is not None
     position = {"epoch": 0, "batch": 0}
     if resuming:
@@ -197,7 +232,7 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
             logger.add_line(f"model.args.checkpoint {model_ck} not found; random weights")
         bank_ck = cfg.loss.get("args", {}).get("checkpoint")
         if bank_ck and os.path.exists(bank_ck):
-            bank = _warm_start_bank(bank_ck, pcfg.num_data, dev, logger)
+            bank = shard_bank(_warm_start_bank(bank_ck, pcfg.num_data, dev, logger), layout)
             if bank.view1_mem.shape != state.bank.view1_mem.shape:
                 raise ValueError(f"checkpoint banks {tuple(bank.view1_mem.shape)} != "
                                  f"{tuple(state.bank.view1_mem.shape)} of this run")
@@ -220,6 +255,9 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
     print_freq = int(cfg.get("print_freq", 100))
     save_freq_steps = int(cfg.get("save_freq_steps", 0))
     test_freq = int(cfg.get("test_freq", 1))
+    n_batches = len(loader)
+    if cfg.get("steps_per_epoch") is not None:
+        n_batches = min(n_batches, int(cfg["steps_per_epoch"]))
     for epoch in range(start_epoch, epochs):
         loader.set_epoch(epoch)
         state.epoch = epoch
@@ -228,7 +266,7 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
             "batch_t": AverageMeter("Time", ":.3f", window_size=100),
             "data_t": AverageMeter("Data", ":.3f", window_size=100),
         }
-        progress = ProgressMeter(len(loader), meters.values(), phase="pretrain",
+        progress = ProgressMeter(n_batches, meters.values(), phase="pretrain",
                                  epoch=epoch, logger=logger)
         # mid-epoch resume: skip, at the index level, the batches the
         # checkpoint had trained (the sampler repeats an epoch's order).
@@ -249,6 +287,7 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
             mine_s = _mine(state, crit, dev)
             logger.add_line(f"mined the positive set in {mine_s:.3f} s")
         pending = []  # (loss on the device, clips) until the next drain
+        step_losses = []
 
         def drain_losses():
             # ONE device->host copy for the whole pending window
@@ -257,6 +296,7 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
             vals = torch.stack([v for v, _ in pending]).tolist()
             for v, (_, n) in zip(vals, pending):
                 meters["loss"].update(v, n=n)
+            step_losses.extend(vals)
             pending.clear()
 
         clips = steps = 0
@@ -264,9 +304,9 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
         start_step = state.step
         t_epoch = t0 = time.perf_counter()
         batches = device_prefetch(loader, dev)
-        for it in range(start_it, len(loader) + 1):
+        for it in range(start_it, n_batches + 1):
             t_wait = time.perf_counter()
-            batch = next(batches, None)
+            batch = next(batches, None) if it < n_batches else None
             wait_s += time.perf_counter() - t_wait
             if batch is None:
                 break
@@ -280,7 +320,7 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
                 logger.add_line(f"profiler: trace written to {tracer.path}")
             if save_freq_steps and state.step % save_freq_steps == 0:
                 ckpt.save(state.step, state, {"epoch": epoch, "batch": it + 1})
-            if it % print_freq == 0 or it == len(loader) - 1:
+            if it % print_freq == 0 or it == n_batches - 1:
                 drain_losses()  # sync point
                 meters["batch_t"].update(time.perf_counter() - t0)
                 progress.display(it)
@@ -290,9 +330,15 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
             else:
                 meters["batch_t"].update(time.perf_counter() - t0)
             t0 = time.perf_counter()
+        batches.close()  # a capped epoch leaves the loader mid-way: stop its workers
         drain_losses()
         _sync(dev)
         train_s = time.perf_counter() - t_epoch
+        if world.distributed:
+            # the loss is already averaged a step; this averages the
+            # host-side timing meters for the epoch's summary line
+            progress.synchronize_meters(world)
+            progress.display(n_batches)
 
         state.scheduler.step()  # MultiStepLR: once an epoch
         state.epoch = epoch + 1
@@ -319,7 +365,7 @@ def run_pretraining(cfg: Config, debug: bool = False, device: str | torch.device
                 tb.add_scalar("test/loss", test_loss, state.step)
         if on_epoch is not None:
             on_epoch({"epoch": epoch, "start_step": start_step, "steps": steps, "clips": clips,
-                      "loss": meters["loss"].avg, "train_s": train_s,
+                      "loss": meters["loss"].avg, "step_losses": step_losses, "train_s": train_s,
                       "loader_wait_s": wait_s, "test_loss": test_loss, "mine_s": mine_s})
         mine_s = None
 

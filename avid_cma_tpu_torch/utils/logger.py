@@ -7,9 +7,8 @@ a latent bug we do not reproduce), utils/metrics_utils.py:12-58
 (top-k accuracy, AverageMeter with optional sliding window).
 
 Meters consume host-side floats. Only rank 0 writes: the logger and the
-scalar writer are quiet on every other rank. The port runs one process
-(multi-process training is ROADMAP A6), so ``synchronize_meters`` has
-nothing to average yet and says so when called with more than one.
+scalar writer are quiet on every other rank. ``synchronize_meters``
+averages the meters over the ranks (``parallel.multihost.sync_float``).
 """
 
 from __future__ import annotations
@@ -20,6 +19,9 @@ from collections import deque
 from typing import Dict, Iterable, Optional
 
 import numpy as np
+
+from avid_cma_tpu_torch.parallel.mesh import World
+from avid_cma_tpu_torch.parallel.multihost import sync_float
 
 
 class Logger:
@@ -136,14 +138,16 @@ class ProgressMeter:
         else:
             print(line, flush=True)
 
-    def synchronize_meters(self, world_size: int = 1) -> None:
-        """Cross-process meter averaging (reference intent,
-        utils/logger.py:73-79). No-op in one process; more than one raises
-        (ROADMAP A6): reporting rank-0-only numbers as synced averages
-        would be worse than failing."""
-        if world_size > 1:
-            raise NotImplementedError(
-                "meter sync across processes is not ported yet (ROADMAP A6)")
+    def synchronize_meters(self, world: World) -> None:
+        """Each meter's average, averaged over the ranks of ``world``
+        (reference intent, utils/logger.py:73-79); every rank must call
+        it. A no-op in a one-process world."""
+        if not world.distributed:
+            return
+        for m in self.meters:
+            v = sync_float(m.avg, world)
+            m.reset()
+            m.update(v)
 
 
 def accuracy(logits: np.ndarray, labels: np.ndarray, topk=(1,)):

@@ -120,10 +120,34 @@
    finetune and the probe entry points and ``classify`` with
    ``model.dtype: float32`` (the f32 stem forms and K5 launched, no bf16
    K2/K3);
-14. prints one JSON line per check, a summary line per slice, the
+14. distributed pretraining, each phase in a one-rank NCCL world brought
+   up by the port's ``parallel.mesh`` (the card host has one card; the
+   cross-rank logic is held to the JAX package by the CPU tests over two
+   gloo ranks), the group destroyed after each phase:
+   a. the row-sharded primitives at AudioSet size (N = 1,784,108, D =
+      128, 32 clips, 1024 negatives): ``scores_sharded`` (forward and
+      dq) equal to direct ``gather_scores`` bit for bit, through one K4
+      launch; ``ema_update_rows_sharded`` equal to the replicated
+      update; both timed beside their replicated forms;
+   b. ``configs/main/avid/audioset/Cross-N1024.yaml`` from the entry
+      point, ``pretrain_main([..., "--multihost"])`` with torchrun's
+      environment for one rank, at full width with its sharded banks of
+      N = 1,784,108 rows (a synthetic corpus of N videos, 32 clips a
+      rank, epochs cut to LOOP_STEPS steps, no test phase): one epoch and
+      a resume; then the same with ``bank_sharding=replicated`` and no
+      process group. Under cuDNN's deterministic algorithms (both runs),
+      the per-step losses, the final banks, Z and every parameter and
+      BN stat must be the same bits; the checkpoint holds 1,784,108-row
+      banks; each kernel's launches;
+   c. the Kinetics AVID-CMA YAML with ``loss.bank_sharding=sharded``,
+      chained from the loop phase's AVID run: one epoch; its positive
+      set (the row-sharded sweep's) equal to ``mine_positives`` of the
+      AVID run's banks, except at near-ties; and the row-sharded sweep
+      against ``mine_positives`` at N = 232,067 random unit rows;
+15. prints one JSON line per check, a summary line per slice, the
    ``{"kernels": [...]}`` line (launches: the AVID loop phase's, the
-   eval loops', the learning proof's and the f32 evals') and, last,
-   ``{"ok": true, "device": ...}``.
+   eval loops', the learning proof's, the f32 evals' and the
+   distributed phases') and, last, ``{"ok": true, "device": ...}``.
 
 Every phase runs under the backend state the entry points set
 (``prepare_device``: TF32 off, cuDNN autotuning on), set before the
@@ -139,6 +163,7 @@ import itertools
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -149,8 +174,10 @@ import torch
 import torch.nn.functional as F
 
 from avid_cma_tpu_torch import config as config_lib
+from avid_cma_tpu_torch.cli import pretrain_main
 from avid_cma_tpu_torch.criterions import avid_cma, mining
-from avid_cma_tpu_torch.criterions.avid import AVIDConfig, BankState
+from avid_cma_tpu_torch.criterions.avid import AVIDConfig, BankState, _last_occurrence
+from avid_cma_tpu_torch.criterions.nce import l2_normalize
 from avid_cma_tpu_torch.data.pipelines import preprocess_batch
 from avid_cma_tpu_torch.device import prepare_device
 from avid_cma_tpu_torch.models.av_wrapper import av_wrapper, init_params
@@ -163,6 +190,7 @@ from avid_cma_tpu_torch.models.eval_wrappers import (
 from avid_cma_tpu_torch.models.video import R2Plus1D
 from avid_cma_tpu_torch.ops import stft, video_aug
 from avid_cma_tpu_torch.ops.sampling import rank_shift
+from avid_cma_tpu_torch.parallel import mesh, sharding
 from avid_cma_tpu_torch.ops.kernels import (
     _lib,
     nce_gather,
@@ -277,6 +305,21 @@ LOOP_STEPS = 5  # train steps an epoch, and test steps an epoch
 EXPECTED_LOOP_LAUNCHES = {"spectrogram": 4 * LOOP_STEPS, "stem_pool_fwd": 4 * LOOP_STEPS,
                           "stem_pool_bwd": 2 * LOOP_STEPS, "nce_gather": 16 * LOOP_STEPS,
                           "r2p1d_pair": 26 * LOOP_STEPS, **NO_F32_STEM}
+# the distributed phases. AudioSet's recipe: N = 1,784,108 bank rows, 32
+# clips a rank (its 256 over 8 GPUs). The synthetic corpus has N videos so
+# that the banks have N rows; its epochs are cut to LOOP_STEPS steps (160
+# clips), with no test phase (the test split would hold N videos too).
+AUDIOSET_CONFIG = os.path.join(REPO, "configs/main/avid/audioset/Cross-N1024.yaml")
+AUDIOSET_ROWS = 1784108
+# the AudioSet phase, per layout: two runs of one epoch, 4 score launches
+# a train step (sharded: one K4 launch per score call, on the rank's shard)
+AUDIOSET_OVERRIDES = ["dataset.backend=synthetic", f"dataset.synthetic_size={AUDIOSET_ROWS}",
+                      "dataset.batch_size=32", f"steps_per_epoch={LOOP_STEPS}",
+                      "no_test=true", "optimizer.num_epochs=1", "log2tb=false",
+                      "num_workers=4", "print_freq=1"]
+EXPECTED_AUDIOSET_LAUNCHES = {"spectrogram": 2 * LOOP_STEPS, "stem_pool_fwd": 2 * LOOP_STEPS,
+                              "stem_pool_bwd": 2 * LOOP_STEPS, "nce_gather": 8 * LOOP_STEPS,
+                              "r2p1d_pair": 0, **NO_F32_STEM}
 # AVID-CMA: 8 score launches a step (inst-v2a and inst-a2v: the self row
 # and the negatives; pos-v2v and pos-a2a: the positives and the first 64
 # negatives), against AVID's 4
@@ -287,6 +330,8 @@ CMA_LOOP_CONFIG = os.path.join(REPO, "configs/main/avid-cma/kinetics/"
 EXPECTED_CMA_LOOP_LAUNCHES = {"spectrogram": 4 * LOOP_STEPS, "stem_pool_fwd": 4 * LOOP_STEPS,
                               "stem_pool_bwd": 2 * LOOP_STEPS, "nce_gather": 32 * LOOP_STEPS,
                               "r2p1d_pair": 26 * LOOP_STEPS, **NO_F32_STEM}
+# the sharded CMA phase: one run of one epoch (5 train and 5 test steps)
+EXPECTED_CMA_SHARDED_LAUNCHES = {k: v // 2 for k, v in EXPECTED_CMA_LOOP_LAUNCHES.items()}
 # the action-recognition evals from their YAMLs: the UCF-101 full finetune
 # at 8 and 32 frames (batch 64) and the Kinetics-400 linear probe (batch
 # 128), raw frames at the configs' decode_size
@@ -1912,6 +1957,239 @@ def run_cma_loop(model_dir: str) -> dict:
     }
 
 
+@contextlib.contextmanager
+def one_rank_world():
+    """torchrun's environment for a world of one process on this card (a
+    free localhost port) while the block runs; the process group, if the
+    block left one up, is destroyed after it and the environment
+    restored."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        mesh.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_sharded_primitives(smi: str) -> dict:
+    """The row-sharded bank primitives at AudioSet size in a one-rank NCCL
+    world: scores_sharded (K4 on the shard, forward and dq) against direct
+    gather_scores, and the sharded bank EMA against the replicated one,
+    both the same bits; each timed with CUDA events beside its replicated
+    form (at one rank the collectives are copies on the card)."""
+    n, d, b, k, t = AUDIOSET_ROWS, 128, 32, 1024, 0.07
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bank = l2_normalize(torch.randn((n, d), generator=gen, device="cuda"))
+    idx = torch.randint(0, n, (b, k), generator=gen, device="cuda")
+    q = l2_normalize(torch.randn((b, d), generator=gen, device="cuda"))
+    g = torch.randn((b, k), generator=gen, device="cuda")
+    y = torch.randint(0, n, (b,), generator=gen, device="cuda")
+    y[-1] = y[0]  # a duplicate id: last-write-wins
+    emb = l2_normalize(torch.randn((b, d), generator=gen, device="cuda"))
+    with one_rank_world():
+        world = mesh.initialize("cuda")
+        layout = sharding.BankLayout(n=n, world=world, sharded=True)
+        shard = sharding.shard_rows(bank, 0, 1)
+        qs, qr = q.clone().requires_grad_(True), q.clone().requires_grad_(True)
+        _lib.reset_launches()
+        got = sharding.scores_sharded(shard, idx, qs, layout, t)
+        launches = _lib.LAUNCHES["nce_gather"]
+        want = nce_gather.gather_scores(bank, idx, qr, t)
+        got.backward(g)
+        want.backward(g)
+        require(launches == 1, f"scores_sharded launched K4 {launches} times, not once")
+        require(torch.equal(got, want), "scores_sharded differs from gather_scores")
+        require(torch.equal(qs.grad, qr.grad), "scores_sharded's dq differs from gather_scores'")
+        last = _last_occurrence(y)
+        new_shard = sharding.ema_update_rows_sharded(shard, y, emb, 0.5, layout, last)
+        replicated = bank.clone().index_put_(
+            (y,), l2_normalize(bank[y] * 0.5 + emb * 0.5)[last])
+        require(torch.equal(new_shard[:n], replicated) and not new_shard[n].any(),
+                "the sharded bank EMA differs from the replicated one")
+        del new_shard, replicated
+        ms = {
+            "scores_sharded_ms": time_ms(
+                lambda: sharding.scores_sharded(shard, idx, q, layout, t), 20),
+            "scores_replicated_ms": time_ms(
+                lambda: nce_gather.gather_scores(bank, idx, q, t), 20),
+            "ema_sharded_ms": time_ms(
+                lambda: sharding.ema_update_rows_sharded(shard, y, emb, 0.5, layout, last), 10),
+            "ema_replicated_ms": time_ms(lambda: bank.clone().index_put_(
+                (y,), l2_normalize(bank[y] * 0.5 + emb * 0.5)[last]), 10),
+        }
+    out = {"name": "sharded bank primitives, one-rank NCCL world", "card": smi,
+           "rows": n, "batch": b, "negatives": k, "scores_equal": True, "dq_equal": True,
+           "ema_equal": True, "k4_launches_per_call": launches,
+           "times_are": "CUDA events, mean over calls; the EMA's include the bank copy",
+           **ms}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _final(state: TrainState) -> dict:
+    """The state's full banks (the shard's N rows), Z and state_dict, on
+    the host."""
+    bank = state.bank
+    n = state.layout.n
+    return {"view1_mem": bank.view1_mem[:n].cpu(), "view2_mem": bank.view2_mem[:n].cpu(),
+            "z": bank.z.cpu(), "model": {k: v.cpu() for k, v in state.model.state_dict().items()}}
+
+
+def run_audioset_loop(model_dir: str) -> dict:
+    """The AudioSet AVID YAML from the entry point with its sharded banks
+    in a one-rank NCCL world (--multihost), one epoch and a resume; then
+    the same with replicated banks and no process group; both the same
+    bits, under cuDNN's deterministic algorithms (nondeterministic
+    convolution backward algorithms would make two runs of one layout
+    differ already)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for layout in ("sharded", "replicated"):
+            run_dir = os.path.join(model_dir, f"audioset-{layout}")
+            args = [AUDIOSET_CONFIG] + [a for o in AUDIOSET_OVERRIDES + [
+                f"model.model_dir={run_dir}", f"loss.bank_sharding={layout}"]
+                for a in ("--set", o)]
+            world = one_rank_world if layout == "sharded" else contextlib.nullcontext
+            flag = ["--multihost"] if layout == "sharded" else []
+            records = []
+            with loop_log(os.path.join(model_dir, f"audioset_{layout}.log"),
+                          f"run_pretraining AudioSet ({layout})"):
+                torch.cuda.reset_peak_memory_stats()
+                _lib.reset_launches()
+                with world():
+                    first = pretrain_main(args + flag, on_epoch=records.append)
+                require(first.bank.view1_mem.shape[0] == AUDIOSET_ROWS + (layout == "sharded"),
+                        f"{layout} banks of {first.bank.view1_mem.shape[0]} rows")
+                del first
+                with world():
+                    second = pretrain_main(args + flag + ["--set", "resume=true", "--set",
+                                                          "optimizer.num_epochs=2"],
+                                           on_epoch=records.append)
+                torch.cuda.synchronize()
+            launches = dict(_lib.LAUNCHES)
+            require([(r["epoch"], r["start_step"], r["steps"]) for r in records]
+                    == [(0, 0, LOOP_STEPS), (1, LOOP_STEPS, LOOP_STEPS)],
+                    f"AudioSet {layout} epochs "
+                    f"{[(r['epoch'], r['start_step'], r['steps']) for r in records]}")
+            require(launches == EXPECTED_AUDIOSET_LAUNCHES,
+                    f"AudioSet {layout} launches {launches}, expected {EXPECTED_AUDIOSET_LAUNCHES}")
+            runs[layout] = {"records": records, "launches": launches,
+                            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                            "final": _final(second), "run_dir": run_dir}
+            del second
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    sh, rep = runs["sharded"], runs["replicated"]
+    losses = [[v for r in run["records"] for v in r["step_losses"]] for run in (sh, rep)]
+    require(len(losses[0]) == 2 * LOOP_STEPS and all(np.isfinite(losses[0])),
+            f"AudioSet losses {losses[0]}")
+    require(losses[0] == losses[1], f"per-step losses differ: sharded {losses[0]}, "
+            f"replicated {losses[1]}")
+    a, b = sh["final"], rep["final"]
+    for key in ("view1_mem", "view2_mem", "z"):
+        require(torch.equal(a[key], b[key]), f"sharded and replicated {key} differ")
+    differ = [k for k in a["model"] if not torch.equal(a["model"][k], b["model"][k])]
+    require(not differ, f"sharded and replicated parameters differ: {differ[:5]}")
+    require(float(a["z"]) > 0, "Z not frozen")
+    mgr = CheckpointManager(os.path.join(sh["run_dir"], "Cross-N1024", "checkpoints"))
+    saved = torch.load(mgr.path(mgr.latest_step()), map_location="cpu", weights_only=False)
+    rows = [tuple(saved["bank"][k].shape) for k in ("view1_mem", "view2_mem")]
+    require(rows == [(AUDIOSET_ROWS, 128)] * 2, f"checkpoint banks {rows}")
+    require(torch.equal(saved["bank"]["view1_mem"], a["view1_mem"]),
+            "checkpoint banks differ from the state's")
+    return {
+        "bank_rows": AUDIOSET_ROWS, "checkpoint_bank_rows": rows[0][0],
+        "step_losses": losses[0], "bit_equal_to_replicated": True,
+        "clips_per_sec_per_epoch": {k: [r["clips"] / r["train_s"] for r in run["records"]]
+                                    for k, run in runs.items()},
+        "loader_wait_share_per_epoch": {
+            k: [r["loader_wait_s"] / r["train_s"] for r in run["records"]]
+            for k, run in runs.items()},
+        "peak_mem_gib": {k: run["peak_mem_gib"] for k, run in runs.items()},
+        "launches": {k: sh["launches"][k] + rep["launches"][k] for k in sh["launches"]},
+    }
+
+
+def run_cma_sharded(model_dir: str) -> dict:
+    """The Kinetics AVID-CMA YAML with row-sharded banks in a one-rank
+    NCCL world, chained from the loop phase's AVID run: one epoch; the
+    positive set its row-sharded sweep mined against mine_positives of
+    the AVID run's banks; then the row-sharded sweep against
+    mine_positives at N = 232,067 random unit rows (the CMA slice's size),
+    both equal except at near-ties."""
+    avid_run = os.path.join(model_dir, "Cross-N1024")
+    avid = import_criterion_run(avid_run, "cuda")
+    run_dir = os.path.join(model_dir, "cma-sharded")
+    overrides = LOOP_OVERRIDES + [f"model.model_dir={run_dir}",
+                                  f"model.args.checkpoint={avid_run}",
+                                  f"loss.args.checkpoint={avid_run}", "loss.bank_sharding=sharded"]
+    records = []
+    with loop_log(os.path.join(model_dir, "cma_sharded.log"), "run_pretraining (CMA, sharded)"):
+        _lib.reset_launches()
+        with one_rank_world():
+            state = pretrain_main([CMA_LOOP_CONFIG, "--multihost"] + [
+                a for o in overrides for a in ("--set", o)], on_epoch=records.append)
+        torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    require([(r["epoch"], r["steps"]) for r in records] == [(0, LOOP_STEPS)],
+            f"sharded CMA epochs {[(r['epoch'], r['steps']) for r in records]}")
+    losses = [v for r in records for v in (r["loss"], r["test_loss"])]
+    require(all(v is not None and np.isfinite(v) for v in losses), f"CMA losses {losses}")
+    require(launches == EXPECTED_CMA_SHARDED_LAUNCHES,
+            f"sharded CMA launches {launches}, expected {EXPECTED_CMA_SHARDED_LAUNCHES}")
+    n, pos_k = state.layout.n, state.bank.positive_set.shape[1]
+    pos = state.bank.positive_set[:n]
+    check_positive_set(pos, n, pos_k)
+    rows = torch.arange(n)
+    crit = kinetics_cma()
+    want = mining.mine_positives(avid.view1_mem, avid.view2_mem, pos_k, crit.sampling_type)
+    run_rows = mining_disagreement(pos, want, avid.view1_mem, avid.view2_mem, rows, pos_k,
+                                   crit.sampling_type)
+    del state, avid
+
+    # the sweep at the CMA slice's size: random unit rows, a one-rank world
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    n = BANK_ROWS
+    bank_v = l2_normalize(torch.randn((n, 128), generator=gen, device="cuda"))
+    bank_a = l2_normalize(torch.randn((n, 128), generator=gen, device="cuda"))
+    with one_rank_world():
+        layout = sharding.BankLayout(n=n, world=mesh.initialize("cuda"), sharded=True)
+        shard_v, shard_a = (sharding.shard_rows(m, 0, 1) for m in (bank_v, bank_a))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = mining.mine_positives_sharded(shard_v, shard_a, layout, crit.pos_k,
+                                            crit.sampling_type)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+    del shard_v, shard_a
+    t0 = time.perf_counter()
+    want = mining.mine_positives(bank_v, bank_a, crit.pos_k, crit.sampling_type)
+    torch.cuda.synchronize()
+    replicated_s = time.perf_counter() - t0
+    require(not got[n].any(), "the positive set's sentinel row is not zero")
+    check_positive_set(got[:n], n, crit.pos_k)
+    sweep = mining_disagreement(got[:n], want, bank_v, bank_a, torch.arange(n), crit.pos_k,
+                                crit.sampling_type)
+    return {"run_rows": rows.shape[0], "run_mining_vs_replicated": run_rows,
+            "train_loss": records[0]["loss"], "test_loss": records[0]["test_loss"],
+            "mine_s": records[0]["mine_s"], "launches": launches,
+            "sweep_rows": n, "sweep_vs_replicated": sweep,
+            "sweep_sharded_s": sharded_s, "sweep_replicated_s": replicated_s}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -1939,6 +2217,8 @@ def main() -> None:
     check_stem_pool_32at16(results)
     torch.cuda.empty_cache()
     check_nce_gather(results)
+    check_sharded_primitives(smi)
+    torch.cuda.empty_cache()
     check_r2p1d_pair(results)
     check_small_step()
     check_small_step_f32()
@@ -2014,15 +2294,32 @@ def main() -> None:
                           "ucf/8at16-fold1.yaml and run_linear_probe kinetics/8x224x224-linear.yaml "
                           "(the eval loops' overrides) from the proof's R2Plus1D-10 run, then "
                           "classify of 2 files", **f32_evals}), flush=True)
+        torch.cuda.empty_cache()
+        audioset = run_audioset_loop(model_dir)
+        print(json.dumps({"card": smi, "config": "pretrain_main Cross-N1024.yaml (AudioSet) "
+                          "--multihost, one-rank NCCL world, R2Plus1D-18+Conv2D-10 b32 8x224^2, "
+                          f"sharded banks of {AUDIOSET_ROWS} rows, synthetic corpus of "
+                          f"{AUDIOSET_ROWS} videos, {LOOP_STEPS} steps an epoch, 1 epoch + "
+                          "resume to 2; then bank_sharding=replicated, no process group; "
+                          "cuDNN deterministic", **audioset}), flush=True)
+        torch.cuda.empty_cache()
+        cma_sharded = run_cma_sharded(model_dir)
+        print(json.dumps({"card": smi, "config": "pretrain_main "
+                          "InstX-N1024-PosW-N64-Top32.yaml --multihost, loss.bank_sharding="
+                          "sharded, one-rank NCCL world, from the Cross-N1024 run, 1 epoch; "
+                          f"the row-sharded sweep at N={BANK_ROWS}", **cma_sharded}), flush=True)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
     # each kernel's launches on the main paths: the pretraining entry
     # point's two runs (train steps run K1-K4, its test phases K1, K2, K4
-    # and K5), the eval entry points' four runs (K2, K3, K5), all bf16, and
-    # the f32 learning proof (K1, the f32 forms of K2 and K3, K4, K5) and
-    # the f32 evals (the f32 forms of K2 and K3, K5)
-    launches = {k: sum(p["launches"][k] for p in (loop, evl, proof, f32_evals))
+    # and K5), the eval entry points' four runs (K2, K3, K5), all bf16, the
+    # f32 learning proof (K1, the f32 forms of K2 and K3, K4, K5) and the
+    # f32 evals (the f32 forms of K2 and K3, K5), and the distributed
+    # phases: the AudioSet runs (K1-K4, both layouts) and the sharded CMA
+    # run (K1-K5)
+    launches = {k: sum(p["launches"][k] for p in (loop, evl, proof, f32_evals, audioset,
+                                                  cma_sharded))
                 for k in KERNELS}
     kernels = []
     for key, meta in KERNELS.items():

@@ -5,8 +5,10 @@ documents, its ``_coerce`` equals JAX's on override strings, what its
 writer emits reads back equal with both readers, and the ``Config`` of
 Cross-N1024.yaml gives the ``PretrainConfig`` of the published recipe;
 the Kinetics AVID-CMA YAML gives its recipe and the JAX package's
-criterion config, and the AudioSet AVID-CMA YAML, which needs sharded
-banks and approximate mining, is refused naming both."""
+criterion config; the AudioSet AVID YAML (row-sharded banks) passes
+``check_ported``, and the AudioSet AVID-CMA YAML is refused for its
+approximate mining only; WORLD_SIZE > 1 without ``--multihost`` raises
+naming the flag."""
 
 import dataclasses
 import math
@@ -148,6 +150,27 @@ def test_audioset_cma_yaml_raises_naming_its_gaps():
     cfg = port_config.load(str(REPO / "configs/main/avid-cma/audioset/"
                                       "InstX-N1024-PosW-N64-Top32.yaml"))
     assert pretrain_config(cfg).mining_exact is False
+    assert cfg.loss["bank_sharding"] == "sharded"
     with pytest.raises(NotImplementedError, match="exact: false") as e:
         check_ported(cfg)
-    assert "bank_sharding" in str(e.value) and "A6" in str(e.value) and "A8" in str(e.value)
+    # sharded banks are ported: approximate mining is the only gap left
+    assert "A8.5" in str(e.value) and "bank_sharding" not in str(e.value)
+    cfg.loss["args"]["sampling_args"]["exact"] = True
+    check_ported(cfg)
+
+
+def test_audioset_avid_yaml_passes_and_world_size_needs_multihost(tmp_path, monkeypatch):
+    cfg = port_config.load(str(REPO / "configs/main/avid/audioset/Cross-N1024.yaml"))
+    assert cfg.loss["bank_sharding"] == "sharded" and cfg.loss["args"]["num_data"] == 1784108
+    check_ported(cfg)
+    cfg.loss["bank_sharding"] = "shraded"
+    with pytest.raises(ValueError, match="bank_sharding"):
+        check_ported(cfg)
+
+    from avid_cma_tpu_torch.cli import pretrain_main
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="--multihost"):
+        pretrain_main([str(REPO / "configs/smoke/avid-synthetic.yaml"), "--debug",
+                       "--device", "cpu", "--set", f"model.model_dir={tmp_path}"])
+    assert not list(tmp_path.iterdir())  # raised before writing anything

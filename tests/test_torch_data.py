@@ -3,18 +3,21 @@ datasets, learnable, loader; native/) against the JAX package's: for one
 seed and config, the loaders of both give the same batches (equal uint8
 frames, f32 audio, indices and labels) across two epochs and after
 ``set_start_batch``, for the threaded, cached and native loader kinds on
-the synthetic Kinetics and the learnable dataset; plus the device
-prefetch on the CPU and the native ring's build failure."""
+the synthetic Kinetics and the learnable dataset; each rank's shard of a
+multi-process run equals the JAX ``ShardedBatchSampler``'s; plus the
+device prefetch on the CPU and the native ring's build failure."""
 
 import numpy as np
 import pytest
 import torch
 
 from avid_cma_tpu.config import from_dict as jax_from_dict
+from avid_cma_tpu.data.loader import ShardedBatchSampler as JaxSampler
 from avid_cma_tpu.train import builders as jax_builders
 from avid_cma_tpu_torch import native
 from avid_cma_tpu_torch.config import from_dict
 from avid_cma_tpu_torch.data import decode
+from avid_cma_tpu_torch.data.loader import ShardedBatchSampler
 from avid_cma_tpu_torch.data.prefetch import device_prefetch
 from avid_cma_tpu_torch.train import builders
 from tests.test_torch_models import torch_threads_per_worker  # noqa: F401  (autouse fixture)
@@ -69,6 +72,30 @@ def test_loaders_match_jax(name, kind):
     _assert_same(_batches(port, 1, start=3), _batches(ref, 1, start=3))
     if kind != "cached":  # the cache replays the epoch it filled
         assert not np.array_equal(first[0]["index"], _batches(port, 1)[0]["index"])
+
+
+@pytest.mark.parametrize("n,shards", [(17, 2), (16, 4), (3, 4)])
+def test_rank_shards_match_jax_sampler(n, shards):
+    """The loop's per-rank loader shard (num_shards = world, shard_index =
+    rank) against JAX's sampler: the same batches every epoch, equal
+    counts on every rank (the padding repeats rows when the world
+    outgrows the data), and together every row."""
+    for shuffle, drop_last in ((True, True), (False, False)):
+        seen = []
+        for rank in range(shards):
+            kw = dict(batch_size=2, shuffle=shuffle, drop_last=drop_last, num_shards=shards,
+                      shard_index=rank, seed=3)
+            mine, theirs = ShardedBatchSampler(n, **kw), JaxSampler(n, **kw)
+            for epoch in (0, 1):
+                mine.set_epoch(epoch)
+                theirs.set_epoch(epoch)
+                got = [b.tolist() for b in mine]
+                assert got == [b.tolist() for b in theirs] and len(got) == len(mine)
+                if epoch == 0:
+                    seen += [i for b in got for i in b]
+            assert len(mine) == len(ShardedBatchSampler(n, **{**kw, "shard_index": 0}))
+        if not drop_last:
+            assert set(seen) == set(range(n))
 
 
 def test_datasets_and_backends_match_jax():

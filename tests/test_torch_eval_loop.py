@@ -494,7 +494,7 @@ def test_eval_clis_run_on_the_cpu(tmp_path, script, cfg):
 
 def test_eval_gaps_raise(tmp_path, monkeypatch):
     ecfg, mcfg = _write_cfgs(tmp_path, _finetune_cfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
         finetune_main([ecfg, mcfg, "--multihost", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):

@@ -760,3 +760,72 @@ def test_eval_steps_on_the_card(dev):
     assert launches(lambda: pstep(pstate, frames, labels)) == (1, 0, 5)
     assert all(torch.equal(s, t) for s, t in
                zip(probe.feature_extractor.state_dict().values(), extractor))
+
+
+# ---------------------------------------------------------------------------
+# row-sharded banks in a one-rank NCCL world (the card host has one card)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def one_rank_world(dev):
+    from avid_cma_tpu_torch.parallel import mesh
+
+    world = mesh.initialize("cuda", 0, 1, torch.distributed.HashStore())
+    yield world
+    mesh.shutdown()
+
+
+@pytest.mark.parametrize("n,b,k", [(1, 3, 1), (37, 5, 7), (1000, 33, 1), (1000, 1, 64),
+                                   (4097, 45, 1030)],
+                         ids=["n1", "ragged", "b33-k1", "b1-k64", "b45-k1030"])
+def test_scores_sharded_through_k4_equals_direct_k4(one_rank_world, n, b, k):
+    from avid_cma_tpu_torch.parallel import sharding
+
+    gen = torch.Generator(device="cuda").manual_seed(n + b + k)
+    bank = torch.nn.functional.normalize(torch.randn((n, 128), generator=gen, device="cuda"),
+                                         dim=1)
+    idx = torch.randint(0, n, (b, k), generator=gen, device="cuda")
+    q = torch.randn((b, 128), generator=gen, device="cuda")
+    g = torch.randn((b, k), generator=gen, device="cuda")
+    layout = sharding.BankLayout(n=n, world=one_rank_world, sharded=True)
+    shard = sharding.shard_rows(bank, 0, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        qs = q.to(dtype).clone().requires_grad_(True)
+        qr = q.to(dtype).clone().requires_grad_(True)
+        before = _lib.LAUNCHES["nce_gather"]
+        got = sharding.scores_sharded(shard, idx, qs, layout, 0.07)
+        assert _lib.LAUNCHES["nce_gather"] == before + 1
+        want = nce_gather.gather_scores(bank, idx, qr, 0.07)
+        assert torch.equal(got, want)
+        assert torch.equal(got, nce_gather.scores(bank, idx, qr.detach(), 0.07))
+        got.backward(g)
+        want.backward(g)
+        assert qs.grad.dtype == dtype and torch.equal(qs.grad, qr.grad)
+
+
+def test_sharded_bank_update_and_mining_on_the_card(one_rank_world):
+    from avid_cma_tpu_torch.criterions import mining
+    from avid_cma_tpu_torch.criterions.avid import BankState, update_banks
+    from avid_cma_tpu_torch.parallel import sharding
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, d = 1001, 128
+    banks = [torch.nn.functional.normalize(torch.randn((n, d), generator=gen, device="cuda"),
+                                           dim=1) for _ in range(2)]
+    y = torch.randint(0, n, (9,), generator=gen, device="cuda")
+    y[3] = y[7]
+    emb = torch.randn((9, d), generator=gen, device="cuda")
+    state = BankState(banks[0], banks[1], torch.tensor(0.5, device="cuda"))
+    layout = sharding.BankLayout(n=n, world=one_rank_world, sharded=True)
+    sharded = update_banks(sharding.shard_bank(state, layout), emb, emb.flip(1), y,
+                           (0.5, 0.5), layout)
+    replicated = update_banks(state, emb, emb.flip(1), y, (0.5, 0.5))
+    full = sharding.unshard_bank(sharded, layout)
+    assert torch.equal(full.view1_mem, replicated.view1_mem)
+    assert torch.equal(full.view2_mem, replicated.view2_mem)
+    assert not sharded.view1_mem[n].any()
+    pos = mining.mine_positives_sharded(*(sharding.shard_rows(m, 0, 1) for m in banks), layout, 8)
+    assert pos.shape == (n + 1, 8) and not pos[n].any()
+    assert torch.equal(pos[:n], mining.mine_positives(banks[0], banks[1], 8))
+    mesh_pos = mining.mine_positives_mesh(banks[0], banks[1], 8, one_rank_world)
+    assert torch.equal(mesh_pos, pos[:n])

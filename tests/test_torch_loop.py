@@ -96,13 +96,6 @@ def test_resumed_runs_equal_the_straight_run(tmp_path):
     _same_state(resumed_mid, straight)
 
 
-def test_sharded_bank_raises_naming_a6(tmp_path):
-    cfg = _cfg(tmp_path, 1)
-    cfg.loss["bank_sharding"] = "sharded"
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_pretraining(cfg, device="cpu")
-
-
 def _cma_cfg(model_dir, epochs, checkpoint=None, **top):
     cfg = _cfg(model_dir, epochs, **top)
     cfg.model["name"] = "cma"
